@@ -1,111 +1,47 @@
 #!/usr/bin/env python
-"""Headline benchmark: SpMM forward+backward edges/s/chip (BASELINE metric).
+"""SpMM forward+backward edges/s on one device (BASELINE metric).
 
-Builds an OGBN-arxiv-scale synthetic power-law graph (the multi-host config
-[4] workload shape), then times the framework's best aggregation path
-through a jitted forward+backward pass.  ``vs_baseline`` is the speedup of
-the selected best path over the pure gather+segment_sum XLA reference path
-(the reference's own throughput was never published — BASELINE.md).
+Builds an OGBN-arxiv-scale synthetic power-law graph (the config [4]
+workload shape) and times the segment-sum aggregation path
+(``ops.spmm_segment``) through a jitted forward+backward pass.
 
 Prints exactly one JSON line:
   {"metric": "spmm_fwd_bwd_edges_per_s_per_chip", "value": ..., "unit":
-   "edges/s", "vs_baseline": ...}
+   "edges/s", "n_node": ..., "n_edge": ..., "feat": ..., "device": ...}
+
+Sizes: BENCH_NODES, BENCH_EDGES, BENCH_FEAT, BENCH_ITERS.
 """
 
 import json
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-
-# Near-f32 kernel tier for the headline number: exact one-hot × hi/lo-split
-# bf16 messages, ~1e-6 relative vs the f32-exact "highest" tier at ~1.2x the
-# throughput (see ops/pallas_spmm.py).  Override with GODE_PRECISION=highest.
-os.environ.setdefault("GODE_PRECISION", "bf16x2")
-
-import numpy as np
-
-
-def build_graph(n_nodes: int, n_edges: int, seed: int = 0):
-    """Power-law-ish citation graph (pref-attachment flavoured)."""
-    from graph_odenet_tpu.graph import from_edges
-
-    rng = np.random.default_rng(seed)
-    # Heavy-tailed receiver popularity, uniform senders.
-    pop = rng.zipf(1.8, size=n_edges).astype(np.int64) % n_nodes
-    src = rng.integers(0, n_nodes, size=n_edges)
-    return from_edges(
-        src, pop, n_node=n_nodes, normalize="row",
-        node_multiple=128, edge_multiple=1024,
-    )
-
-
-def time_fn(fn, *args, iters=30, warmup=5):
-    import jax
-
-    for _ in range(warmup):
-        out = fn(*args)
-    jax.block_until_ready(out)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        out = fn(*args)
-    jax.block_until_ready(out)
-    return (time.perf_counter() - t0) / iters
 
 
 def main():
     import jax
-    import jax.numpy as jnp
 
-    from graph_odenet_tpu.ops.spmm import spmm_segment
+    from graph_odenet_tpu.bench import spmm_bench
+    from graph_odenet_tpu.utils.compile_cache import configure_compile_cache
 
+    configure_compile_cache()
     n_nodes = int(os.environ.get("BENCH_NODES", 169_343))
     n_edges = int(os.environ.get("BENCH_EDGES", 1_166_243))
     feat = int(os.environ.get("BENCH_FEAT", 128))
     iters = int(os.environ.get("BENCH_ITERS", 30))
 
-    g = build_graph(n_nodes, n_edges)
-    rng = np.random.default_rng(1)
-    x = jnp.asarray(
-        rng.standard_normal((g.n_node_pad, feat)), jnp.float32
-    )
-
-    def fwd_bwd(path, adj):
-        def loss(x):
-            return 0.5 * jnp.sum(path(adj, x) ** 2)
-
-        return jax.jit(jax.grad(loss))
-
-    t_seg = time_fn(fwd_bwd(spmm_segment, g), x, iters=iters)
-    t = t_seg
-    if os.environ.get("BENCH_PALLAS", "1") != "0":
-        try:
-            from graph_odenet_tpu.ops.pallas_spmm import prepare, spmm_pallas
-
-            csr = prepare(g)
-            t = min(t, time_fn(fwd_bwd(spmm_pallas, csr), x, iters=iters))
-        except Exception:
-            pass  # portable fallback: report the segment path
-    edges_per_s = g.n_edge / t
+    rec = spmm_bench(n_nodes, n_edges, feat=feat, iters=iters)
     dev = jax.devices()[0]
-    print(
-        json.dumps(
-            {
-                "metric": "spmm_fwd_bwd_edges_per_s_per_chip",
-                "value": round(edges_per_s, 1),
-                "unit": "edges/s",
-                "vs_baseline": round(t_seg / t, 4),
-                # Self-describing record (round-2 VERDICT weak #7): the tier
-                # and workload the number was measured at.
-                "precision": os.environ.get("GODE_PRECISION", "highest"),
-                "n_node": n_nodes,
-                "n_edge": g.n_edge,
-                "feat": feat,
-                "device": f"{dev.platform}:{getattr(dev, 'device_kind', '?')}",
-            }
-        )
-    )
+    print(json.dumps({
+        "metric": "spmm_fwd_bwd_edges_per_s_per_chip",
+        "value": rec["edges_per_s"],
+        "unit": "edges/s",
+        "n_node": n_nodes,
+        "n_edge": rec["n_edge"],
+        "feat": feat,
+        "device": f"{dev.platform}:{dev.device_kind}",
+    }))
 
 
 if __name__ == "__main__":

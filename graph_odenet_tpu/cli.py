@@ -47,24 +47,20 @@ def _node(args):
         from graph_odenet_tpu.utils.checkpoint import Checkpointer
 
         ck = Checkpointer(args.ckpt_dir)
-        ck.save(max(res["best"]["epoch"], 0), dict(params=res["params"]),
-                wait=True)
-        ck.close()
+        ck.save(max(res["best"]["epoch"], 0), dict(params=res["params"]))
     print(json.dumps(dict(best=res["best"], epochs_run=res["epochs_run"],
                           seconds=round(res["seconds"], 2))))
 
 
 def _predict(args):
     """Restore trained params and evaluate/serve logits — the inference
-    path (same model-building code as training; params from orbax)."""
+    path (same model-building code as training; params from the
+    checkpoint)."""
     import jax
 
     from graph_odenet_tpu.data import synthetic_planetoid
     from graph_odenet_tpu.data.planetoid import load_planetoid
     from graph_odenet_tpu.train import NodeClassConfig, build_model
-    from graph_odenet_tpu.train.node_classification import (
-        choose_representation,
-    )
     from graph_odenet_tpu.utils.checkpoint import Checkpointer
     from graph_odenet_tpu.utils.metrics import masked_accuracy
 
@@ -80,21 +76,14 @@ def _predict(args):
         method=args.method, steps=args.steps,
     )
     model = build_model(cfg, data.n_class)
-    rep = choose_representation(data.graph, cfg.model)
-    adj = data.dense_adj() if rep == "dense" else data.graph
-    params_like = model.init(
-        {"params": jax.random.PRNGKey(0)}, adj, data.features,
-        deterministic=True,
-    )["params"]
+    adj = data.graph
+    params_like = model.init(jax.random.PRNGKey(0), adj, data.features)
     ck = Checkpointer(args.ckpt_dir)
     params = ck.restore(dict(params=params_like))["params"]
-    ck.close()
 
     @jax.jit
     def predict(params):
-        return model.apply(
-            {"params": params}, adj, data.features, deterministic=True
-        )
+        return model.apply(params, adj, data.features, deterministic=True)[0]
 
     lp = predict(params)
     print(json.dumps(dict(
@@ -183,13 +172,14 @@ def main(argv=None):
     n.add_argument("--epochs", type=int, default=200)
     n.add_argument("--patience", type=int, default=100)
     n.add_argument("--seed", type=int, default=42)
-    n.add_argument("--representation", default=None,
-                   choices=[None, "dense", "segment", "pallas"])
+    n.add_argument("--representation", default="segment",
+                   choices=["segment", "dense"],
+                   help="dense: aggregate through a dense Â (GCN family)")
     n.add_argument("--log-path", default=None)
     n.add_argument("--calibrated", action="store_true",
                    help="difficulty-calibrated twin (GCN ~ published acc)")
     n.add_argument("--ckpt-dir", default=None,
-                   help="save best params (orbax) for `predict`")
+                   help="save best params for `predict`")
     n.add_argument("--quiet", action="store_true")
     n.set_defaults(fn=_node)
 
@@ -245,6 +235,9 @@ def main(argv=None):
     b.set_defaults(fn=_bench)
 
     args = p.parse_args(argv)
+    from graph_odenet_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     return args.fn(args)
 
 

@@ -135,6 +135,7 @@ def run_config(
     calibrated: bool = False,
     seed: int | None = None,
     rollout: int = 0,
+    epochs: int | None = None,
 ):
     """Execute canonical config ``i`` (index or name) end-to-end.
 
@@ -142,7 +143,8 @@ def run_config(
     points at real pygcn-format files (node configs); ``calibrated`` uses
     the difficulty-calibrated twins (data.planetoid.CALIBRATED) so twin
     accuracy is comparable to the published real-data numbers; ``seed``
-    overrides the config seed (multi-seed accuracy tables); ``rollout``
+    overrides the config seed (multi-seed accuracy tables); ``epochs``
+    overrides its epoch budget (smoke runs); ``rollout``
     (physics config only) > 0 runs the full deliverable — discrete IN +
     IN-ODE trained on shared data and evaluated by rollout MSE over that
     horizon (``train.physics.physics_rollout_curves``).
@@ -151,6 +153,8 @@ def run_config(
     cfg_name = CONFIG_NAMES[i] if isinstance(i, int) else i
     if seed is not None and hasattr(cfg, "seed"):
         cfg = dataclasses.replace(cfg, seed=seed)
+    if epochs is not None:
+        cfg = dataclasses.replace(cfg, epochs=epochs)
     if kind == "node":
         from graph_odenet_tpu.data import synthetic_planetoid
         from graph_odenet_tpu.data.planetoid import load_planetoid
@@ -185,13 +189,13 @@ def run_config(
             out = physics_rollout_curves(
                 cfg, horizon=rollout, n_test=max(4, int(64 * scale))
             )
-            return dict(config=cfg_name, **out)
+            return {**out, "config": cfg_name}
         res = fit_inode(cfg)
         out = {k: v for k, v in res.items() if isinstance(v, (int, float))}
         return dict(config=cfg_name, **out)
     if kind == "sharded":
         # A real end-to-end training run (the R7 recipe — Adam + weight
-        # decay + val early-stop + orbax checkpoints) of the edge-parallel
+        # decay + val early-stop + checkpoints) of the edge-parallel
         # GCN-ODE over the device mesh, on (synthetic) ogbn-arxiv.
         import jax
 

@@ -6,9 +6,9 @@ citing) files, build a symmetric self-looped row-normalised adjacency,
 row-normalise features, fixed index splits (Cora: 140 train / 300 val /
 1000 test starting at 500).
 
-TPU deltas: features are padded to lane multiples (128) and nodes to
-sublane multiples so every downstream matmul tiles onto the MXU without
-re-padding; the adjacency is a static-shape ``Graph``.
+Deltas: features are padded to multiples of 128 and nodes to multiples
+of 8, so downstream matmuls need no re-padding; the adjacency is a
+static-shape ``Graph``.
 
 ``synthetic_planetoid`` generates a deterministic stochastic-block-model
 citation graph with class-conditioned sparse bag-of-words features matching

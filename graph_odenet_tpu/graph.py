@@ -8,7 +8,7 @@ an immutable pytree of **static-shape** device arrays so it can flow through
 
   * edges are COO ``(senders, receivers, weight)`` int32/f32 arrays,
     canonically **sorted by receiver** (CSR-like order) so row-segmented
-    aggregation and the Pallas SpMM tiles can consume them directly;
+    aggregation can consume them directly;
   * real sizes ``n_node`` / ``n_edge`` are static Python ints (metadata), the
     arrays themselves are padded to tile multiples — padding edges carry
     weight 0 and index node 0, so linear aggregation is exact and masked
@@ -230,8 +230,9 @@ def _to_dense(senders, receivers, weight, n):
 def to_dense(g: Graph) -> jax.Array:
     """Densified normalised adjacency Â[f32, n_node_pad² ] (row=receiver).
 
-    For small graphs (Cora/Citeseer scale) a dense MXU matmul against Â is the
-    fastest aggregation path on TPU; padding rows/cols are zero.
+    One dense matmul against Â aggregates all nodes at once
+    (``NodeClassConfig.representation="dense"``); padding rows/cols are
+    zero.
     """
     w = jnp.where(g.edge_mask(), g.weight, 0.0)
     return _to_dense(g.senders, g.receivers, w, g.n_node_pad)

@@ -7,9 +7,15 @@ physics models (SURVEY.md §2 R5/R6/R9/R10):
               any solver from ``graph_odenet_tpu.ode``)
   physics:    InteractionNetwork (Battaglia et al. 2016) and its ODE form.
 
-All modules are ``flax.linen`` modules over static-shape ``Graph`` pytrees;
-matmuls accept a ``param_dtype``/``dtype`` pair so the MXU path can run
-bfloat16 while solver state stays float32 (SURVEY.md §7 hard part 4).
+Every model is a frozen dataclass of hyperparameters over static-shape
+``Graph`` pytrees (or a dense Â), with two methods:
+
+  init(key, *inputs) -> params              a plain dict of float32 arrays
+  apply(params, *inputs, deterministic=True, rng=None) -> (out, stats)
+
+``stats`` is the ODE solver's statistics (``nfe`` …) for the continuous
+models and ``{}`` for the discrete ones.  Layers (``GCNLayer``, ``GATLayer``,
+``MLP``, ``InteractionNetwork``) return their output alone.
 """
 
 from graph_odenet_tpu.models.gcn import GCN, GCNLayer, ResGCN  # noqa: F401

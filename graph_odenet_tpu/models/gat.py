@@ -11,23 +11,23 @@ scores live only on the edge list:
     α    = segment_softmax(e, receivers)
     h'   = segment_sum(α · Wh_src)               (ops.attention_aggregate)
 
-which is mathematically identical to both reference layers and is the shape
-XLA/Pallas want (SURVEY.md §3.3).
+which is mathematically identical to both reference layers (SURVEY.md §3.3).
 """
 
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
 from graph_odenet_tpu.graph import Graph
+from graph_odenet_tpu.models.common import dropout, glorot, like, split_rng
 from graph_odenet_tpu.ops import attention_aggregate, edge_scores
 
 
-class GATLayer(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class GATLayer:
     """Multi-head graph attention layer.
 
     Output is ``[N, heads*features]`` when ``concat`` else the head-mean
@@ -40,54 +40,41 @@ class GATLayer(nn.Module):
     concat: bool = True
     negative_slope: float = 0.2
     attn_dropout: float = 0.0
-    dtype: Any = jnp.float32
-    param_dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, g: Graph, x: jax.Array, *, deterministic: bool = True):
+    def init(self, key, g: Graph, x) -> dict:
+        del g
         H, F = self.heads, self.features
-        wh = nn.DenseGeneral(
-            (H, F),
-            use_bias=False,
-            dtype=self.dtype,
-            param_dtype=self.param_dtype,
-            kernel_init=nn.initializers.glorot_uniform(),
-        )(x)  # [N, H, F]
+        k_w, k_src, k_dst = jax.random.split(key, 3)
+        return {
+            # Glorot over the flattened [F_in, H·F] matrix, like a dense
+            # layer with H·F outputs.
+            "kernel": glorot(k_w, (x.shape[-1], H * F)).reshape(
+                x.shape[-1], H, F
+            ),
+            "attn_src": glorot(k_src, (1, H, F)),
+            "attn_dst": glorot(k_dst, (1, H, F)),
+        }
 
+    def apply(self, params, g: Graph, x, *, deterministic=True, rng=None):
+        wh = jnp.einsum("...i,ihf->...hf", x, params["kernel"])  # [N, H, F]
         # Decomposed attention vector a = [a_src ‖ a_dst]: per-node scalar
         # scores instead of per-edge F-dim concat (same math, O(N·F + E)).
-        a_src = self.param(
-            "attn_src", nn.initializers.glorot_uniform(), (1, H, F), self.param_dtype
-        )
-        a_dst = self.param(
-            "attn_dst", nn.initializers.glorot_uniform(), (1, H, F), self.param_dtype
-        )
-        s_src = jnp.sum(wh * a_src.astype(wh.dtype), axis=-1)  # [N, H]
-        s_dst = jnp.sum(wh * a_dst.astype(wh.dtype), axis=-1)  # [N, H]
-
+        s_src = jnp.sum(wh * params["attn_src"], axis=-1)  # [N, H]
+        s_dst = jnp.sum(wh * params["attn_dst"], axis=-1)  # [N, H]
         logits = edge_scores(g, s_src, s_dst, negative_slope=self.negative_slope)
-        rng = (
-            self.make_rng("dropout")
-            if (not deterministic and self.attn_dropout > 0.0)
-            else None
-        )
+        drop = not deterministic and self.attn_dropout > 0.0
         out = attention_aggregate(
-            g,
-            logits.astype(jnp.float32),
-            wh,
-            edge_dropout_rng=rng,
-            edge_dropout_rate=0.0 if deterministic else self.attn_dropout,
-            scores=(
-                s_src.astype(jnp.float32), s_dst.astype(jnp.float32)
-            ),
-            negative_slope=self.negative_slope,
+            g, logits, wh,
+            edge_dropout_rng=rng if drop else None,
+            edge_dropout_rate=self.attn_dropout if drop else 0.0,
         )  # [N, H, F]
         if self.concat:
-            return out.reshape(out.shape[0], H * F)
+            return out.reshape(out.shape[0], self.heads * self.features)
         return jnp.mean(out, axis=1)
 
 
-class GAT(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class GAT:
     """2-layer GAT classifier: 8×8 concat + ELU, then head-averaged output
     layer, log_softmax (Veličković et al. 2018 config the reference uses)."""
 
@@ -96,29 +83,37 @@ class GAT(nn.Module):
     out_heads: int = 1
     n_class: int = 7
     dropout: float = 0.6
-    dtype: Any = jnp.float32
-    param_dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, g: Graph, x: jax.Array, *, deterministic: bool = True):
-        kw = dict(dtype=self.dtype, param_dtype=self.param_dtype)
-        x = nn.Dropout(self.dropout, deterministic=deterministic)(x)
-        h = GATLayer(
-            self.hidden, heads=self.heads, attn_dropout=self.dropout, **kw
-        )(g, x, deterministic=deterministic)
-        h = nn.elu(h)
-        h = nn.Dropout(self.dropout, deterministic=deterministic)(h)
-        h = GATLayer(
-            self.n_class,
-            heads=self.out_heads,
-            concat=False,
-            attn_dropout=self.dropout,
-            **kw,
-        )(g, h, deterministic=deterministic)
-        return nn.log_softmax(h.astype(jnp.float32), axis=-1)
+    def _layers(self):
+        return (
+            GATLayer(self.hidden, heads=self.heads, attn_dropout=self.dropout),
+            GATLayer(self.n_class, heads=self.out_heads, concat=False,
+                     attn_dropout=self.dropout),
+        )
+
+    def init(self, key, g: Graph, x) -> dict:
+        l1, l2 = self._layers()
+        k1, k2 = jax.random.split(key)
+        return {
+            "att1": l1.init(k1, g, x),
+            "att2": l2.init(k2, g, like(x, self.heads * self.hidden)),
+        }
+
+    def apply(self, params, g: Graph, x, *, deterministic=True, rng=None):
+        """Returns ``(log_probs [N, n_class], {})`` — no solver stats."""
+        l1, l2 = self._layers()
+        k0, k1, k2, k3 = split_rng(rng, 4)
+        x = dropout(x, self.dropout, k0, deterministic)
+        h = jax.nn.elu(
+            l1.apply(params["att1"], g, x, deterministic=deterministic, rng=k1)
+        )
+        h = dropout(h, self.dropout, k2, deterministic)
+        h = l2.apply(params["att2"], g, h, deterministic=deterministic, rng=k3)
+        return jax.nn.log_softmax(h, axis=-1), {}
 
 
-class ResGAT(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class ResGAT:
     """Residual GAT: projection, ``n_blocks`` of ``h ← h + elu(att(h))``,
     head-averaged readout (paper's discrete-residual attention variant)."""
 
@@ -127,28 +122,39 @@ class ResGAT(nn.Module):
     n_class: int = 7
     n_blocks: int = 2
     dropout: float = 0.6
-    dtype: Any = jnp.float32
-    param_dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, g: Graph, x: jax.Array, *, deterministic: bool = True):
-        kw = dict(dtype=self.dtype, param_dtype=self.param_dtype)
-        x = nn.Dropout(self.dropout, deterministic=deterministic)(x)
-        h = nn.elu(
-            GATLayer(self.hidden, heads=self.heads, attn_dropout=self.dropout, **kw)(
-                g, x, deterministic=deterministic
-            )
-        )
+    def _layers(self):
         dim = self.hidden * self.heads
-        for _ in range(self.n_blocks):
-            h = nn.Dropout(self.dropout, deterministic=deterministic)(h)
+        return (
+            GATLayer(self.hidden, heads=self.heads, attn_dropout=self.dropout),
             # Per-block attention keeps width constant so the residual adds.
-            blk = GATLayer(
-                dim, heads=1, concat=False, attn_dropout=self.dropout, **kw
-            )(g, h, deterministic=deterministic)
-            h = h + nn.elu(blk)
-        h = nn.Dropout(self.dropout, deterministic=deterministic)(h)
-        h = GATLayer(self.n_class, heads=1, concat=False, **kw)(
-            g, h, deterministic=deterministic
+            GATLayer(dim, heads=1, concat=False, attn_dropout=self.dropout),
+            GATLayer(self.n_class, heads=1, concat=False),
         )
-        return nn.log_softmax(h.astype(jnp.float32), axis=-1)
+
+    def init(self, key, g: Graph, x) -> dict:
+        first, block, last = self._layers()
+        ks = jax.random.split(key, self.n_blocks + 2)
+        h = like(x, self.hidden * self.heads)
+        return {
+            "input": first.init(ks[0], g, x),
+            "blocks": [block.init(k, g, h) for k in ks[1:-1]],
+            "output": last.init(ks[-1], g, h),
+        }
+
+    def apply(self, params, g: Graph, x, *, deterministic=True, rng=None):
+        """Returns ``(log_probs [N, n_class], {})`` — no solver stats."""
+        first, block, last = self._layers()
+        ks = split_rng(rng, 2 * self.n_blocks + 3)
+        x = dropout(x, self.dropout, ks[0], deterministic)
+        h = jax.nn.elu(first.apply(
+            params["input"], g, x, deterministic=deterministic, rng=ks[1]
+        ))
+        for i, p in enumerate(params["blocks"]):
+            h = dropout(h, self.dropout, ks[2 + 2 * i], deterministic)
+            h = h + jax.nn.elu(block.apply(
+                p, g, h, deterministic=deterministic, rng=ks[3 + 2 * i]
+            ))
+        h = dropout(h, self.dropout, ks[-1], deterministic)
+        h = last.apply(params["output"], g, h, deterministic=deterministic)
+        return jax.nn.log_softmax(h, axis=-1), {}

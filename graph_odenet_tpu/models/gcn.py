@@ -4,53 +4,49 @@ Parity: reference ``GraphConvolution`` (``out = spmm(Â, X·W) + b``,
 SURVEY.md §2 R2) and the 2-layer ``GCN`` (hidden 16, dropout 0.5, ReLU,
 log_softmax — §3.2), plus the paper's residual variant (§2 R5).
 
-TPU notes: the dense ``X·W`` matmul is the MXU work; aggregation goes
-through ``ops.spmm`` which takes either the sparse ``Graph`` or a
-pre-densified Â (fastest for Cora-scale graphs).  Feature dims should be
-padded to lane multiples (128) by the data layer for peak MXU utilisation.
+The dense ``X·W`` matmul is the only matrix product; aggregation goes
+through ``ops.spmm``, which takes either the sparse ``Graph`` or a
+pre-densified Â (see ``train.node_classification.adjacency``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Union
+import dataclasses
+from typing import Union
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
 from graph_odenet_tpu.graph import Graph
+from graph_odenet_tpu.models.common import dropout, glorot, like, split_rng
 from graph_odenet_tpu.ops import spmm
 
 Adj = Union[Graph, jax.Array]
 
 
-class GCNLayer(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class GCNLayer:
     """``h' = Â (h W) + b`` — one graph convolution."""
 
     features: int
     use_bias: bool = True
-    dtype: Any = jnp.float32
-    param_dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, adj: Adj, x: jax.Array) -> jax.Array:
-        support = nn.Dense(
-            self.features,
-            use_bias=False,
-            dtype=self.dtype,
-            param_dtype=self.param_dtype,
-            kernel_init=nn.initializers.glorot_uniform(),
-        )(x)
-        out = spmm(adj, support)
+    def init(self, key, adj: Adj, x) -> dict:
+        del adj
+        params = {"kernel": glorot(key, (x.shape[-1], self.features))}
         if self.use_bias:
-            bias = self.param(
-                "bias", nn.initializers.zeros, (self.features,), self.param_dtype
-            )
-            out = out + bias.astype(out.dtype)
+            params["bias"] = jnp.zeros((self.features,), jnp.float32)
+        return params
+
+    def apply(self, params, adj: Adj, x: jax.Array) -> jax.Array:
+        out = spmm(adj, x @ params["kernel"])
+        if self.use_bias:
+            out = out + params["bias"]
         return out
 
 
-class GCN(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class GCN:
     """2-layer GCN node classifier (reference §3.2 call stack).
 
     forward: relu(gc1(x)) → dropout → gc2 → log_softmax
@@ -59,18 +55,25 @@ class GCN(nn.Module):
     hidden: int = 16
     n_class: int = 7
     dropout: float = 0.5
-    dtype: Any = jnp.float32
-    param_dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, adj: Adj, x: jax.Array, *, deterministic: bool = True):
-        h = nn.relu(GCNLayer(self.hidden, dtype=self.dtype, param_dtype=self.param_dtype)(adj, x))
-        h = nn.Dropout(self.dropout, deterministic=deterministic)(h)
-        h = GCNLayer(self.n_class, dtype=self.dtype, param_dtype=self.param_dtype)(adj, h)
-        return nn.log_softmax(h.astype(jnp.float32), axis=-1)
+    def init(self, key, adj: Adj, x) -> dict:
+        k1, k2 = jax.random.split(key)
+        return {
+            "conv1": GCNLayer(self.hidden).init(k1, adj, x),
+            "conv2": GCNLayer(self.n_class).init(k2, adj, like(x, self.hidden)),
+        }
+
+    def apply(self, params, adj: Adj, x, *, deterministic=True, rng=None):
+        """Returns ``(log_probs [N, n_class], {})`` — no solver stats."""
+        (k1,) = split_rng(rng, 1)
+        h = jax.nn.relu(GCNLayer(self.hidden).apply(params["conv1"], adj, x))
+        h = dropout(h, self.dropout, k1, deterministic)
+        h = GCNLayer(self.n_class).apply(params["conv2"], adj, h)
+        return jax.nn.log_softmax(h, axis=-1), {}
 
 
-class ResGCN(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class ResGCN:
     """Residual GCN — the paper's discrete deep-residual baseline (R5):
     input projection, ``n_blocks`` residual graph-conv blocks
     ``h ← h + σ(Â h W)``, linear readout.  The continuous-depth limit of
@@ -80,16 +83,26 @@ class ResGCN(nn.Module):
     n_class: int = 7
     n_blocks: int = 2
     dropout: float = 0.5
-    dtype: Any = jnp.float32
-    param_dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, adj: Adj, x: jax.Array, *, deterministic: bool = True):
-        kw = dict(dtype=self.dtype, param_dtype=self.param_dtype)
-        h = nn.relu(GCNLayer(self.hidden, **kw)(adj, x))
-        for _ in range(self.n_blocks):
-            h = nn.Dropout(self.dropout, deterministic=deterministic)(h)
-            h = h + nn.relu(GCNLayer(self.hidden, **kw)(adj, h))
-        h = nn.Dropout(self.dropout, deterministic=deterministic)(h)
-        h = GCNLayer(self.n_class, **kw)(adj, h)
-        return nn.log_softmax(h.astype(jnp.float32), axis=-1)
+    def init(self, key, adj: Adj, x) -> dict:
+        ks = jax.random.split(key, self.n_blocks + 2)
+        h = like(x, self.hidden)
+        return {
+            "input": GCNLayer(self.hidden).init(ks[0], adj, x),
+            "blocks": [
+                GCNLayer(self.hidden).init(k, adj, h) for k in ks[1:-1]
+            ],
+            "output": GCNLayer(self.n_class).init(ks[-1], adj, h),
+        }
+
+    def apply(self, params, adj: Adj, x, *, deterministic=True, rng=None):
+        """Returns ``(log_probs [N, n_class], {})`` — no solver stats."""
+        ks = split_rng(rng, self.n_blocks + 1)
+        block = GCNLayer(self.hidden)
+        h = jax.nn.relu(block.apply(params["input"], adj, x))
+        for p, k in zip(params["blocks"], ks):
+            h = dropout(h, self.dropout, k, deterministic)
+            h = h + jax.nn.relu(block.apply(p, adj, h))
+        h = dropout(h, self.dropout, ks[-1], deterministic)
+        h = GCNLayer(self.n_class).apply(params["output"], adj, h)
+        return jax.nn.log_softmax(h, axis=-1), {}

@@ -14,35 +14,46 @@ relation MLP 4×150 → 50-dim effects, object MLP 100 hidden.
 
 from __future__ import annotations
 
-from typing import Any, Sequence, Union
+import dataclasses
+from typing import Sequence, Union
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from graph_odenet_tpu.models.common import lecun
 from graph_odenet_tpu.ode import odeint, odeint_adjoint
 from graph_odenet_tpu.ops.segment import gather, segment_sum
 
 
-class MLP(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class MLP:
+    """Dense stack: LeCun-normal kernels, zero biases, ``activation``
+    between layers and none after the last."""
+
     hidden: Sequence[int]
     out: int
     activation: str = "relu"
-    dtype: Any = jnp.float32
-    param_dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, x):
-        act = getattr(nn, self.activation)
-        for h in self.hidden:
-            x = act(nn.Dense(h, dtype=self.dtype, param_dtype=self.param_dtype)(x))
-        return nn.Dense(self.out, dtype=self.dtype, param_dtype=self.param_dtype)(x)
+    def init(self, key, x) -> list:
+        sizes = [x.shape[-1], *self.hidden, self.out]
+        keys = jax.random.split(key, len(sizes) - 1)
+        return [
+            {"kernel": lecun(k, (a, b)), "bias": jnp.zeros((b,), jnp.float32)}
+            for k, a, b in zip(keys, sizes[:-1], sizes[1:])
+        ]
+
+    def apply(self, params, x):
+        act = getattr(jax.nn, self.activation)
+        for layer in params[:-1]:
+            x = act(x @ layer["kernel"] + layer["bias"])
+        return x @ params[-1]["kernel"] + params[-1]["bias"]
 
 
-class InteractionNetwork(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class InteractionNetwork:
     """effects = φ_R([o_src ‖ o_dst ‖ r_attr]);  out = φ_O([o ‖ Σ effects ‖ ext]).
 
-    ``__call__(objs[N,Do], senders[E], receivers[E], rel_attr[E,Dr]?,
+    ``apply(params, objs[N,Do], senders[E], receivers[E], rel_attr[E,Dr]?,
     ext[N,De]?) -> [N, out_dim]``.  Batch with ``jax.vmap`` over leading
     axes of ``objs``/``rel_attr``/``ext``.
     """
@@ -51,29 +62,43 @@ class InteractionNetwork(nn.Module):
     effect_dim: int = 50
     relation_hidden: Sequence[int] = (150, 150, 150, 150)
     object_hidden: Sequence[int] = (100,)
-    dtype: Any = jnp.float32
-    param_dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, objs, senders, receivers, rel_attr=None, ext=None):
+    def _mlps(self):
+        return (
+            MLP(tuple(self.relation_hidden), self.effect_dim),
+            MLP(tuple(self.object_hidden), self.out_dim),
+        )
+
+    def init(self, key, objs, senders, receivers, rel_attr=None, ext=None):
+        del senders, receivers
+        relation, obj = self._mlps()
+        k_rel, k_obj = jax.random.split(key)
+        d_obj = objs.shape[-1]
+        d_rel = 2 * d_obj + (0 if rel_attr is None else rel_attr.shape[-1])
+        d_in = d_obj + self.effect_dim + (0 if ext is None else ext.shape[-1])
+        return {
+            "relation": relation.init(k_rel, jnp.zeros((d_rel,))),
+            "object": obj.init(k_obj, jnp.zeros((d_in,))),
+        }
+
+    def apply(self, params, objs, senders, receivers, rel_attr=None, ext=None):
+        relation, obj = self._mlps()
         n = objs.shape[0]
-        kw = dict(dtype=self.dtype, param_dtype=self.param_dtype)
         rel_in = [gather(objs, senders), gather(objs, receivers)]
         if rel_attr is not None:
             rel_in.append(rel_attr)
-        effects = MLP(self.relation_hidden, self.effect_dim, **kw)(
-            jnp.concatenate(rel_in, axis=-1)
+        effects = relation.apply(
+            params["relation"], jnp.concatenate(rel_in, axis=-1)
         )
         agg = segment_sum(effects, receivers, num_segments=n, sorted_ids=False)
         obj_in = [objs, agg]
         if ext is not None:
             obj_in.append(ext)
-        return MLP(self.object_hidden, self.out_dim, **kw)(
-            jnp.concatenate(obj_in, axis=-1)
-        )
+        return obj.apply(params["object"], jnp.concatenate(obj_in, axis=-1))
 
 
-class INODE(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class INODE:
     """Interaction network as continuous dynamics (SURVEY.md §2 R10).
 
     State ``y = [N, 2D]`` is position ‖ velocity; the IN predicts
@@ -81,9 +106,10 @@ class INODE(nn.Module):
 
         d pos/dt = vel,   d vel/dt = IN(...)
 
-    ``__call__(y0, ts, static_attr[N,Ds], senders, receivers)`` integrates
-    over ``ts`` and returns the trajectory ``[T, N, 2D]`` — the reference's
-    long-span ``odeint(IN_func, state_0, t_grid)`` rollout (§3.4).
+    ``apply(params, y0, ts, static_attr[N,Ds], senders, receivers)``
+    integrates over ``ts`` and returns ``(trajectory [T, N, 2D], solver
+    stats)`` — the reference's long-span ``odeint(IN_func, state_0,
+    t_grid)`` rollout (§3.4).
     """
 
     dim: int = 2
@@ -95,53 +121,47 @@ class INODE(nn.Module):
     atol: float = 1e-6
     steps: int = 16
     adjoint: Union[bool, str] = False  # False | True | "checkpoint"
-    remat: bool = False         # rematerialise dynamics on backward — the
-                                # TPU HBM lever: without it the solver scan
-                                # stores every relation-MLP activation per
-                                # step (OOMs at batch 512 on a 16 GB chip)
-    dtype: Any = jnp.float32
-    param_dtype: Any = jnp.float32
+    remat: bool = False         # rematerialise dynamics on backward: without
+                                # it the solver scan stores every
+                                # relation-MLP activation per step
 
-    @nn.compact
-    def __call__(self, y0, ts, static_attr, senders, receivers, rel_attr=None):
-        core = InteractionNetwork(
+    def _core(self):
+        return InteractionNetwork(
             out_dim=self.dim,
             effect_dim=self.effect_dim,
             relation_hidden=self.relation_hidden,
             object_hidden=self.object_hidden,
-            dtype=self.dtype,
-            param_dtype=self.param_dtype,
         )
+
+    def init(self, key, y0, ts, static_attr, senders, receivers, rel_attr=None):
+        del ts
+        objs = jnp.concatenate([static_attr, y0], axis=-1)
+        return {
+            "core": self._core().init(key, objs, senders, receivers, rel_attr)
+        }
+
+    def apply(self, params, y0, ts, static_attr, senders, receivers,
+              rel_attr=None):
+        core = self._core()
         D = self.dim
 
-        def dynamics(t, y, params):
+        def dynamics(t, y, p):
             del t
             pos, vel = y[..., :D], y[..., D:]
             objs = jnp.concatenate([static_attr, pos, vel], axis=-1)
-            accel = core.apply(
-                {"params": params}, objs, senders, receivers, rel_attr
-            )
+            accel = core.apply(p, objs, senders, receivers, rel_attr)
             return jnp.concatenate([vel, accel], axis=-1)
 
-        params = self.param(
-            "core",
-            lambda rng: core.init(
-                rng,
-                jnp.concatenate([static_attr, y0], axis=-1),
-                senders,
-                receivers,
-                rel_attr,
-            )["params"],
-        )
         if self.remat:
             dynamics = jax.checkpoint(dynamics)
-        integ = odeint_adjoint if self.adjoint else odeint
-        kw = (
-            dict(checkpoint=True) if self.adjoint == "checkpoint" else {}
-        )
-        return integ(
-            dynamics, y0, ts, params,
+        kw = dict(
             method=self.method, rtol=self.rtol, atol=self.atol,
             steps_per_interval=self.steps, max_steps_per_interval=self.steps,
-            **kw,
+            return_stats=True,
         )
+        if self.adjoint:
+            return odeint_adjoint(
+                dynamics, y0, ts, params["core"],
+                checkpoint=self.adjoint == "checkpoint", **kw,
+            )
+        return odeint(dynamics, y0, ts, params["core"], **kw)

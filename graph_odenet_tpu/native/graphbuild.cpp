@@ -11,7 +11,7 @@
 //   god_preprocess_edges:  symmetrize → dedup → self-loops → sort by
 //                          (receiver, sender) → row/sym normalise.
 //                          Returns the resulting edge count (≤ capacity).
-//   god_build_blocks:      CSR row-block pointers for the Pallas tiles.
+//   god_build_blocks:      CSR row-block pointers.
 //
 // Build: `make -C graph_odenet_tpu/native` → libgraphbuild.so.
 

@@ -1,4 +1,4 @@
-"""Jittable ODE solvers — the TPU-native replacement for torchdiffeq.
+"""Jittable ODE solvers — the on-device replacement for torchdiffeq.
 
 Capability parity (SURVEY.md §2 T1–T4):
   * ``api.odeint``          ↔ ``torchdiffeq.odeint`` — method dispatch,

@@ -118,8 +118,8 @@ _odeint_adjoint_impl.defvjp(_fwd, _bwd)
 # alongside the cotangents — a second controller-driven solve whose step
 # count is unrelated to the forward's, and whose y drifts from the forward
 # trajectory.  Here the forward stores every accepted state (O(accepted
-# steps)·|y| HBM — ~1.4 GB at arxiv/h=64, trivially affordable next to the
-# 28.9 GB direct backprop needs) and the reverse sweep takes exactly one
+# steps)·|y| device memory — far less than direct backprop, which stores
+# every stage's activations) and the reverse sweep takes exactly one
 # fixed ``bwd_method`` step (default rk4, ``bwd_substeps`` subdivisions)
 # per stored step, with the y component re-anchored at the stored value at
 # every step boundary: no controller work, no rejected backward steps, no
@@ -189,9 +189,7 @@ def _ckpt_bwd(func, opts, residuals, g):
     ys_flat = jax.vmap(lambda yi: ravel_pytree(yi)[0])(ys)   # [T, D]
     g_flat = jax.vmap(lambda gi: ravel_pytree(gi)[0])(g)     # [T, D]
     # Output-time perturbation gradients: ∂L/∂t_i = ⟨f(t_i, y_i), g_i⟩.
-    # Static unroll over the (small) output grid — vmap would put a batch
-    # dimension on any pallas_call inside ``func``, which the TPU lowering
-    # rejects for ANY-memory-space operands.
+    # Static unroll over the (small) output grid.
     f_at = jnp.stack([
         f_af(ts[i].astype(dtype), ys_flat[i], args_flat)
         for i in range(ts.shape[0])

@@ -3,11 +3,11 @@
 ``odeint(func, y0, ts, *args, method=..., rtol=..., atol=...)`` integrates
 ``dy/dt = func(t, y, *args)`` and returns the solution at every requested
 time (``ys[0] == y0``), like ``torchdiffeq.odeint``.  Differences, all
-deliberate TPU-first choices:
+deliberate:
 
   * ``y0`` may be any pytree; state is ravelled once at this boundary so the
-    solvers see a flat ``f32[D]`` vector (cheap on TPU, simplifies norms and
-    the augmented adjoint state).
+    solvers see a flat ``f32[D]`` vector (simplifies norms and the augmented
+    adjoint state).
   * the integration is a single XLA program — jit/vmap/pjit compose; no
     per-step host sync.
   * explicit ``*args`` (e.g. model params) are threaded through so

@@ -237,8 +237,8 @@ def rk_step(
 ):
     """One explicit RK step on ravelled state.
 
-    Stages unroll statically (S ≤ 7) — XLA fuses the stage updates; the MXU
-    work lives inside ``func``.
+    Stages unroll statically (S ≤ 7) — XLA fuses the stage updates; the
+    matmul work lives inside ``func``.
 
     Returns ``(y1, f1, y_err, k)`` where ``f1`` is f(t0+dt, y1) — free for
     FSAL tableaus, one extra eval otherwise (skipped when

@@ -8,7 +8,7 @@ divided differences, error control against ``atol + rtol·max(|y0|,|y1|)``
 with an RMS norm, and the k−1/k/k+1 order-selection rule driven by the
 γ* Adams–Moulton error constants.
 
-TPU-first realisation: torchdiffeq keeps Python deques of past ``(t, φ)``
+On-device realisation: torchdiffeq keeps Python deques of past ``(t, φ)``
 pairs and loops on the host; here the history is a pair of fixed-size
 ring-free buffers (``prev_t: f32[K+2]``, ``phi: f32[K+2, D]``, most recent
 first) carried through ``lax.while_loop`` / ``lax.scan``, and the

@@ -1,14 +1,12 @@
-"""Sparse aggregation ops: the TPU-native replacement for the reference's
+"""Sparse aggregation ops: the replacement for the reference's
 ``torch.spmm`` / ``torch.sparse.mm`` / ``scatter_add`` usage (SURVEY.md §2 T5).
 
-Three tiers, one API:
-  * ``segment.py``  — pure-JAX gather + ``segment_sum`` (reference semantics,
-    runs anywhere, is what XLA already compiles well);
-  * ``spmm.py``     — ``spmm(graph, x)`` dispatcher with a dense-Â MXU path
-    for small graphs and the Pallas path for large ones;
+  * ``segment.py``  — gather + ``segment_sum``/``segment_softmax``
+    (reference semantics; XLA lowers them to gathers and scatter-adds);
+  * ``spmm.py``     — ``spmm(adj, x)`` over a sparse ``Graph`` or a dense Â;
   * ``sddmm.py``    — per-edge score computation (GAT attention logits) and
-    the fused SDDMM→softmax→SpMM sandwich;
-  * ``pallas_spmm.py`` — hand-written Mosaic/TPU kernels behind the above.
+    the SDDMM→softmax→SpMM sandwich;
+  * ``dropmask.py`` — counter-based attention-dropout masks.
 """
 
 from graph_odenet_tpu.ops.segment import (  # noqa: F401

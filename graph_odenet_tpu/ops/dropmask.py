@@ -2,21 +2,13 @@
 
 The reference applies dropout to the post-softmax attention coefficients
 (pyGAT convention; SURVEY.md §2 R3/R4) by sampling a Bernoulli mask in
-edge order.  On TPU that mask becomes a problem in the backward: the dWh
-CSC reduction consumes edges in *sender-sorted* order, so a mask sampled
-in CSR order must be permuted through a narrow ``[E, H]`` gather that XLA
-lowers per-element (~8–15 ms at arxiv scale — RESULTS.md).
+edge order.  Here the mask is a pure *function* of (sender, receiver,
+head, seed): a counter-based hash (murmur3 finalizer over a mixed key).
+Any consumer can regenerate it in whatever edge order it owns, with no
+permutation and no stored ``[E, H]`` mask — the single-device segment path
+(``ops.sddmm``) and the edge-partitioned ring (``parallel.sharded_gat``),
+whose buckets hold the edges in another order, draw identical masks.
 
-Instead the mask is a pure *function* of (sender, receiver, head, seed):
-a counter-based hash (murmur3 finalizer over a mixed key) that any
-consumer — the XLA forward, the fused α/dlogit kernel, or the CSC dWh
-recompute kernel (``pallas_spmm._segment_reduce_recompute_kernel``) —
-can regenerate in whatever edge order it already owns, with no permute
-and no [E, H] residual.
-
-Keying on the (sender, receiver) pair rather than the edge id is what
-makes in-kernel regeneration free: both endpoints are already present in
-the CSC pass (sender = block row, receiver = a lane of the gather table).
 Caveat: duplicate edges (same ordered pair) share their dropout fate —
 the graph builders here never produce duplicates.
 """
@@ -29,7 +21,7 @@ import jax.numpy as jnp
 __all__ = ["keep24", "attention_dropout_scale", "seed_from_key"]
 
 # Mixing multipliers (odd, high-entropy) + murmur3 fmix32 finalizer
-# constants.  Shared verbatim by the Pallas kernel implementation.
+# constants.
 K_SND = 0x9E3779B9
 K_RCV = 0x85EBCA6B
 K_HEAD = 0xC2B2AE35

@@ -9,10 +9,9 @@ This is the compute pattern of the reference's GAT layers (SURVEY.md §3.3):
 
 The reference computes dense N×N scores then masks non-edges with −∞
 (``GraphAttentionLayer``) or drives a custom autograd Function over
-``torch.sparse.mm`` (``SpGraphAttentionLayer``).  TPU-native form: scores
-exist only on the edge list; softmax is ``segment_softmax``; everything is
-gather/segment ops the compiler fuses, with a Pallas fused kernel available
-for large graphs.
+``torch.sparse.mm`` (``SpGraphAttentionLayer``).  Here scores exist only on
+the edge list; softmax is ``segment_softmax``; everything is gather/segment
+ops the compiler fuses.
 
 The per-edge decomposition ``e_ij = s_src[i] + s_dst[j]`` (where
 ``s_src = Wh @ a_src``) turns the SDDMM into two dense matvecs plus a
@@ -23,7 +22,6 @@ reference's sparse layer uses implicitly via ``a[:F]``/``a[F:]`` splitting.
 from __future__ import annotations
 
 import jax
-import jax.numpy as jnp
 
 from graph_odenet_tpu.graph import Graph
 from graph_odenet_tpu.ops.segment import gather, segment_softmax, segment_sum
@@ -57,8 +55,6 @@ def attention_aggregate(
     *,
     edge_dropout_rng: jax.Array | None = None,
     edge_dropout_rate: float = 0.0,
-    scores: tuple[jax.Array, jax.Array] | None = None,
-    negative_slope: float = 0.2,
 ) -> jax.Array:
     """softmax over incoming edges, then attention-weighted value sum.
 
@@ -67,53 +63,14 @@ def attention_aggregate(
       values: ``[N_pad, H, F]`` per-head node values (``Wh`` reshaped).
       edge_dropout_*: the reference applies dropout to attention
         coefficients after the softmax (GAT convention); same here.
-      scores: optional ``(s_src, s_dst)`` node tables such that ``logits ==
-        edge_scores(g, s_src, s_dst, negative_slope=negative_slope)`` —
-        lets the fused Pallas backward recompute α in CSC order instead of
-        paying the narrow [E, H] edge-permute gather.  Purely a speed hint;
-        gradients still flow through ``logits``.
 
     Returns ``[N_pad, H, F]`` aggregated features.
     """
-    # PallasCSR adjacency → fused SDDMM-softmax-SpMM kernel (TPU fast path).
-    # Attention dropout stays on the fused path: the keep mask is drawn
-    # XLA-side ([E, H], cheap) and streamed into the kernel as an α scale,
-    # so training with the reference's attn dropout keeps kernel speed.
-    if type(g).__name__ == "PallasCSR":
-        from graph_odenet_tpu.ops.dropmask import seed_from_key
-        from graph_odenet_tpu.ops.pallas_gat import (
-            gat_aggregate_pallas,
-            gat_aggregate_pallas_dropout,
-            gat_aggregate_pallas_scores,
-            gat_aggregate_pallas_scores_dropout,
-        )
-
-        if edge_dropout_rng is None or edge_dropout_rate == 0.0:
-            if scores is not None:
-                return gat_aggregate_pallas_scores(
-                    g, negative_slope, logits, values, scores[0], scores[1]
-                )
-            return gat_aggregate_pallas(g, logits, values)
-        if scores is not None:
-            # Counter-based mask (ops.dropmask): the backward regenerates
-            # it in CSC order in-kernel, keeping the fast dWh path live
-            # under the reference's attention dropout.
-            return gat_aggregate_pallas_scores_dropout(
-                g, negative_slope, edge_dropout_rate, logits, values,
-                scores[0], scores[1], seed_from_key(edge_dropout_rng),
-            )
-        keep = jax.random.bernoulli(
-            edge_dropout_rng, 1.0 - edge_dropout_rate, logits.shape
-        )
-        dmask = keep.astype(jnp.float32) / (1.0 - edge_dropout_rate)
-        return gat_aggregate_pallas_dropout(g, logits, values, dmask)
-
     mask = g.edge_mask()[:, None]
     alpha = segment_softmax(logits, g.receivers, g.n_node_pad, mask=mask)
     if edge_dropout_rng is not None and edge_dropout_rate > 0.0:
-        # Same counter-based mask the Pallas path regenerates in-kernel
-        # (ops.dropmask) so segment and fused paths apply IDENTICAL masks
-        # — apples-to-apples numerics in tests and benchmarks.
+        # Counter-based mask (ops.dropmask): a function of the edge's
+        # endpoints, so the sharded tier draws the same mask per edge.
         from graph_odenet_tpu.ops.dropmask import (
             attention_dropout_scale, seed_from_key,
         )

@@ -7,8 +7,7 @@ receivers)`` over a receiver-sorted edge list, and its sparse-GAT softmax
 
 All functions take a **static** ``num_segments`` so shapes stay compile-time
 constant under ``jit`` / ``vmap`` / solver loops.  XLA lowers
-``segment_sum`` on sorted indices to an efficient scatter-add; the Pallas
-kernels in ``pallas_spmm.py`` are drop-in upgrades validated against these.
+``segment_sum`` on sorted indices to a scatter-add.
 """
 
 from __future__ import annotations

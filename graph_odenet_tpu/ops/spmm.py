@@ -4,21 +4,18 @@ Replaces the reference's ``torch.spmm(adj, support)`` (GraphConvolution,
 SURVEY.md §2 R2) and ``SpecialSpmm`` (sparse GAT, R4).  Dispatch on the
 adjacency representation:
 
-  * ``Graph``            → gather + ``segment_sum`` (XLA scatter path), or
-                           the Pallas CSR-tile kernel when enabled;
-  * dense ``jax.Array``  → a single MXU matmul ``Â @ X``.  For Cora-scale
-                           graphs (N ≲ 10k) the densified adjacency easily
-                           fits HBM and the MXU beats any sparse path — the
-                           trainer densifies once with ``graph.to_dense`` and
-                           reuses it across every solver step.
+  * ``Graph``            → gather + ``segment_sum`` (XLA scatter-add);
+  * dense ``jax.Array``  → a single matmul ``Â @ X``.  The trainer
+                           densifies once with ``graph.to_dense`` and reuses
+                           it across every solver step when asked to
+                           (``train.node_classification.adjacency``).
 
-Both paths are linear, so autodiff through them is exact; the Pallas path
-carries its own ``custom_vjp`` (SpMMᵀ for dx via the CSC view).
+Both paths are linear, so autodiff through them is exact.
 """
 
 from __future__ import annotations
 
-from typing import Any, Union
+from typing import Union
 
 import jax
 import jax.numpy as jnp
@@ -39,22 +36,16 @@ def spmm_segment(g: Graph, x: jax.Array) -> jax.Array:
     return segment_sum(msgs, g.receivers, num_segments=g.n_node_pad)
 
 
-def spmm(adj: Union[Graph, Any, jax.Array], x: jax.Array) -> jax.Array:
+def spmm(adj: Union[Graph, jax.Array], x: jax.Array) -> jax.Array:
     """Aggregate node features over the (normalised) adjacency.
 
     Args:
-      adj: the adjacency in one of three representations —
-        * ``Graph``: COO, gather + ``segment_sum`` (portable XLA path);
-        * ``PallasCSR`` (``ops.pallas_spmm.prepare(graph)``): the Pallas
-          MXU segment-reduction kernel, the fast path on real TPUs;
+      adj: the adjacency in one of two representations —
+        * ``Graph``: COO, gather + ``segment_sum``;
         * dense ``[N_pad, N_pad]`` array (row = receiver) as produced by
-          ``graph.to_dense``: one MXU matmul.
+          ``graph.to_dense``: one matmul.
       x:   ``[N_pad, F]`` node features.
     """
     if isinstance(adj, Graph):
         return spmm_segment(adj, x)
-    if type(adj).__name__ == "PallasCSR":
-        from graph_odenet_tpu.ops import pallas_spmm
-
-        return pallas_spmm.spmm_pallas(adj, x)
     return jnp.dot(adj.astype(x.dtype), x, preferred_element_type=x.dtype)

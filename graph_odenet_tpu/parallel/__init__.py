@@ -1,6 +1,6 @@
 """Multi-device execution (SURVEY.md §2 T6/T7 — absent in the single-GPU
 reference, mandated by BASELINE): edge-partitioned graph aggregation over a
-``jax.sharding.Mesh`` with XLA collectives riding ICI.
+``jax.sharding.Mesh`` with XLA collectives between the devices.
 
   mesh.py       — mesh construction + ``jax.distributed`` bootstrap
   partition.py  — receiver-block edge partitioning (each shard owns its

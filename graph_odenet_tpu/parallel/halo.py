@@ -11,11 +11,6 @@ node features sharded by receiver block:
     [me, that block] while the next chunk is in flight — communication
     hidden behind local segment-sums (the scaling-critical path for the
     ≥80% multi-host efficiency target).
-  * ``mode="ring_pallas"`` — same ring, but the local reduction is the
-    Pallas MXU CSR-tile kernel (ops.pallas_spmm._segment_reduce) over the
-    bucket's receiver-sorted tiles: distributed halo exchange + native
-    kernel in one jitted program.  Requires bucket size % E_CHUNK == 0 and
-    block size % 8 == 0 (the partitioner's defaults).
 
 Correctness contract (tested): all modes match the single-device
 ``ops.spmm`` to float tolerance, on a CPU-emulated 8-device mesh.
@@ -32,169 +27,41 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from graph_odenet_tpu.ops.segment import segment_sum
 from graph_odenet_tpu.parallel.partition import PartitionedGraph
 
-__all__ = ["spmm_sharded", "bucket_reduce_pallas"]
+__all__ = ["spmm_sharded"]
 
 
-@jax.custom_vjp
-def bucket_reduce_pallas(msgs, rel2d, blk_ptr, receivers):
-    """Receiver-sorted bucket reduction on the Pallas CSR-tile MXU kernel,
-    differentiable in ``msgs``.
-
-    The reduce is linear in the per-edge messages, so its vjp is just the
-    receiver-row gather ``dmsgs[e] = g[receivers[e]]`` — XLA's fast
-    128-lane-row gather form, no transpose metadata needed.  This is what
-    lets the halo ring run the native kernel *inside a training step*
-    (VERDICT r4 #2/#3): ``pallas_call`` itself has no AD rule.
-
-    Returns the full ``[n_blocks·BLOCK_ROWS, F]`` tile rows — callers slice
-    ``[:block_size]`` (the slice's transpose zero-pads ``g`` back, and rows
-    ≥ block_size are never referenced by ``receivers``).
-    """
-    from graph_odenet_tpu.ops.pallas_spmm import _is_tpu, _segment_reduce
-
-    return _segment_reduce(
-        msgs, rel2d, blk_ptr, blk_ptr.shape[-1] - 1, interpret=not _is_tpu()
-    )
-
-
-def _bucket_reduce_fwd(msgs, rel2d, blk_ptr, receivers):
-    return bucket_reduce_pallas(msgs, rel2d, blk_ptr, receivers), (
-        rel2d, blk_ptr, receivers,
-    )
-
-
-def _bucket_reduce_bwd(res, g):
-    rel2d, blk_ptr, receivers = res
-    dmsgs = jnp.take(g, receivers, axis=0)
-    # Metadata is non-differentiable index state → zero cotangents (same
-    # convention as ops.pallas_spmm.spmm_pallas).
-    return (
-        dmsgs,
-        jnp.zeros_like(rel2d),
-        jnp.zeros_like(blk_ptr),
-        jnp.zeros_like(receivers),
-    )
-
-
-bucket_reduce_pallas.defvjp(_bucket_reduce_fwd, _bucket_reduce_bwd)
-
-
-@partial(jax.custom_vjp, nondiff_argnums=(0, 1))
-def _bucket_spmm(use_pallas, block_size, chunk, s_b, r_b, w_b, rel2d,
-                 blk_ptr, t_s_b, t_r_b, t_w_b, t_rel2d, t_blk_ptr):
+@partial(jax.custom_vjp, nondiff_argnums=(0,))
+def _bucket_spmm(block_size, chunk, s_b, r_b, w_b, t_s_b, t_r_b, t_w_b):
     """One bucket's SpMM: ``out[r] = Σ_{e: r_e=r} w_e·chunk[s_e]``,
     differentiable in ``chunk``.
 
-    The hand-written vjp is the whole point: autodiff of the sender gather
-    is an XLA scatter-add over E_bucket rows (~50% of config-4 step time);
-    here the cotangent ``dchunk[s] = Σ_{e: s_e=s} w_e·g[r_e]`` reduces
-    through the bucket's CSC (sender-sorted) view with the same sorted
-    segment kernel as the forward — the multi-device mirror of
-    ``ops.pallas_spmm.spmm_pallas``'s transpose-view backward.
+    The hand-written vjp reduces the cotangent
+    ``dchunk[s] = Σ_{e: s_e=s} w_e·g[r_e]`` through the bucket's CSC
+    (sender-sorted) view, a sorted segment sum, instead of the unsorted
+    scatter-add that autodiff of the sender gather produces.
     """
     msgs = jnp.take(chunk, s_b, axis=0) * w_b[:, None].astype(chunk.dtype)
-    if use_pallas:
-        from graph_odenet_tpu.ops.pallas_spmm import _is_tpu, _segment_reduce
-
-        return _segment_reduce(
-            msgs, rel2d, blk_ptr, blk_ptr.shape[-1] - 1,
-            interpret=not _is_tpu(),
-        )[:block_size]
     return segment_sum(msgs, r_b, num_segments=block_size, sorted_ids=False)
 
 
-def _bucket_spmm_fwd(use_pallas, block_size, chunk, s_b, r_b, w_b, rel2d,
-                     blk_ptr, t_s_b, t_r_b, t_w_b, t_rel2d, t_blk_ptr):
-    out = _bucket_spmm(
-        use_pallas, block_size, chunk, s_b, r_b, w_b, rel2d, blk_ptr,
-        t_s_b, t_r_b, t_w_b, t_rel2d, t_blk_ptr,
-    )
-    return out, (s_b, r_b, w_b, rel2d, blk_ptr,
-                 t_s_b, t_r_b, t_w_b, t_rel2d, t_blk_ptr)
+def _bucket_spmm_fwd(block_size, chunk, s_b, r_b, w_b, t_s_b, t_r_b, t_w_b):
+    out = _bucket_spmm(block_size, chunk, s_b, r_b, w_b, t_s_b, t_r_b, t_w_b)
+    return out, (s_b, r_b, w_b, t_s_b, t_r_b, t_w_b)
 
 
-def _bucket_spmm_bwd(use_pallas, block_size, res, g):
-    (s_b, r_b, w_b, rel2d, blk_ptr,
-     t_s_b, t_r_b, t_w_b, t_rel2d, t_blk_ptr) = res
+def _bucket_spmm_bwd(block_size, res, g):
+    t_s_b, t_r_b, t_w_b = res[3:]
     dmsgs = jnp.take(g, t_r_b, axis=0) * t_w_b[:, None].astype(g.dtype)
-    if use_pallas:
-        from graph_odenet_tpu.ops.pallas_spmm import _is_tpu, _segment_reduce
-
-        dchunk = _segment_reduce(
-            dmsgs, t_rel2d, t_blk_ptr, t_blk_ptr.shape[-1] - 1,
-            interpret=not _is_tpu(),
-        )[:block_size]
-    else:
-        dchunk = segment_sum(
-            dmsgs, t_s_b, num_segments=block_size, sorted_ids=False
-        )
-    zeros = tuple(jnp.zeros_like(a) for a in res)
-    return (dchunk,) + zeros
+    # Padding slots (sender 0) trail the sorted real edges, so the ids are
+    # not sorted as a whole.
+    dchunk = segment_sum(
+        dmsgs, t_s_b, num_segments=block_size, sorted_ids=False
+    )
+    # Edge metadata is index state: zero cotangents.
+    return (dchunk,) + tuple(jnp.zeros_like(a) for a in res)
 
 
 _bucket_spmm.defvjp(_bucket_spmm_fwd, _bucket_spmm_bwd)
-
-
-def _seg_reduce(msgs, rel2d, blk_ptr, block_size):
-    from graph_odenet_tpu.ops.pallas_spmm import _is_tpu, _segment_reduce
-
-    return _segment_reduce(
-        msgs, rel2d, blk_ptr, blk_ptr.shape[-1] - 1, interpret=not _is_tpu()
-    )[:block_size]
-
-
-@partial(jax.custom_vjp, nondiff_argnums=(0, 1))
-def _bucket_spmm_weighted(block_size, feat, chunk, pv_h, s_b, r_b, rel2d,
-                          blk_ptr, t_r_b, t_rel2d, t_blk_ptr, t_perm):
-    """Attention-weighted bucket reduction on the Pallas CSR-tile kernel:
-    ``out[r] = Σ_{e: r_e=r} pv_h[e, h]·chunk[s_e, h·F+f]`` for every head
-    lane group, differentiable in both ``chunk`` (the ring value chunk) and
-    ``pv_h`` (the per-edge softmax numerators, [E_b, H]).
-
-    Two things the hand-written vjp buys over autodiff (VERDICT r4 #2):
-
-      * ``dchunk`` reduces through the bucket's CSC view with the same
-        sorted MXU kernel — no XLA scatter-add (``t_perm`` carries the
-        traced numerators into CSC edge order).
-      * the residual keeps the numerators at [E_b, H] and recomputes the
-        H·F-lane broadcast in the backward, so 18 attention layers of a
-        GAT-ODE step save H-lane tables, not H·F — this alone removes the
-        ~20 GB of saved ``jnp.repeat`` lanes that OOM'd the full-scale
-        config-4 GAT-ODE run.
-    """
-    msgs = jnp.take(chunk, s_b, axis=0) * jnp.repeat(pv_h, feat, axis=1)
-    return _seg_reduce(msgs, rel2d, blk_ptr, block_size)
-
-
-def _bucket_spmm_weighted_fwd(block_size, feat, chunk, pv_h, s_b, r_b, rel2d,
-                              blk_ptr, t_r_b, t_rel2d, t_blk_ptr, t_perm):
-    out = _bucket_spmm_weighted(
-        block_size, feat, chunk, pv_h, s_b, r_b, rel2d, blk_ptr,
-        t_r_b, t_rel2d, t_blk_ptr, t_perm,
-    )
-    return out, (chunk, pv_h, s_b, r_b, rel2d, blk_ptr,
-                 t_r_b, t_rel2d, t_blk_ptr, t_perm)
-
-
-def _bucket_spmm_weighted_bwd(block_size, feat, res, g):
-    (chunk, pv_h, s_b, r_b, rel2d, blk_ptr,
-     t_r_b, t_rel2d, t_blk_ptr, t_perm) = res
-    heads = pv_h.shape[-1]
-    # dchunk[s] = Σ_{e: s_e=s} pv[e]·g[r_e] — gather g and the numerators
-    # into CSC order, reduce into sender tiles (same kernel as forward).
-    gm = jnp.take(g, t_r_b, axis=0) * jnp.repeat(
-        jnp.take(pv_h, t_perm, axis=0), feat, axis=1
-    )
-    dchunk = _seg_reduce(gm, t_rel2d, t_blk_ptr, block_size)
-    # dpv[e, h] = Σ_f chunk[s_e, hF+f]·g[r_e, hF+f] — gathers only.
-    prod = jnp.take(chunk, s_b, axis=0) * jnp.take(g, r_b, axis=0)
-    dpv = prod.reshape(prod.shape[0], heads, feat).sum(-1)
-    return (dchunk, dpv) + tuple(
-        jnp.zeros_like(a) for a in res[2:]
-    )
-
-
-_bucket_spmm_weighted.defvjp(_bucket_spmm_weighted_fwd, _bucket_spmm_weighted_bwd)
 
 
 def _local_accumulate(senders_rel_b, receivers_rel_b, weight_b, chunk, block_size):
@@ -214,7 +81,7 @@ def spmm_sharded(
     axis: str = "edge",
     mode: str = "ring",
     feat_axis: str | None = None,
-    check_vma: bool | None = None,
+    check_vma: bool = True,
 ) -> jax.Array:
     """Â @ x with x row-sharded over ``axis``; returns the same sharding.
 
@@ -261,21 +128,10 @@ def spmm_sharded(
             )
             return out
 
-    elif mode in ("ring", "ring_pallas"):
-        use_pallas = mode == "ring_pallas"
-        if use_pallas:
-            from graph_odenet_tpu.ops.pallas_spmm import E_CHUNK
+    elif mode == "ring":
 
-            if pg.e_bucket % E_CHUNK or B % 8:
-                raise ValueError(
-                    "ring_pallas needs e_bucket % E_CHUNK == 0 and "
-                    f"block_size % 8 == 0; got {pg.e_bucket}, {B} — "
-                    "partition with the default edge_multiple"
-                )
-
-        def kernel(senders_rel, receivers_rel, weight, rel2d, blk_ptr,
-                   t_senders_rel, t_receivers_rel, t_weight, t_rel2d,
-                   t_blk_ptr, x_shard):
+        def kernel(senders_rel, receivers_rel, weight, t_senders_rel,
+                   t_receivers_rel, t_weight, x_shard):
             me = jax.lax.axis_index(axis)
             perm_src = [((i + 1) % n_parts, i) for i in range(n_parts)]
 
@@ -284,11 +140,10 @@ def spmm_sharded(
                     return jnp.take(a[0], src_block, axis=0)
 
                 return _bucket_spmm(
-                    use_pallas, B, chunk,
+                    B, chunk,
                     take(senders_rel), take(receivers_rel), take(weight),
-                    take(rel2d), take(blk_ptr),
                     take(t_senders_rel), take(t_receivers_rel),
-                    take(t_weight), take(t_rel2d), take(t_blk_ptr),
+                    take(t_weight),
                 )
 
             def body(k, carry):
@@ -319,20 +174,13 @@ def spmm_sharded(
             mesh=mesh,
             in_specs=(edge_spec, edge_spec, edge_spec, x_spec),
             out_specs=x_spec,
-            check_vma=True if check_vma is None else check_vma,
+            check_vma=check_vma,
         )(pg.senders_rel, pg.receivers_rel, pg.weight, x)
-    tile_spec = P(axis, None, None, None)
-    ptr_spec = P(axis, None, None)
     return jax.shard_map(
         kernel,
         mesh=mesh,
-        in_specs=(edge_spec, edge_spec, edge_spec, tile_spec, ptr_spec,
-                  edge_spec, edge_spec, edge_spec, tile_spec, ptr_spec,
-                  x_spec),
+        in_specs=(edge_spec,) * 6 + (x_spec,),
         out_specs=x_spec,
-        # pallas_call's out ShapeDtypeStruct carries no vma annotation, so
-        # the varying-manual-axes check can't see through it.
-        check_vma=(not use_pallas) if check_vma is None else check_vma,
-    )(pg.senders_rel, pg.receivers_rel, pg.weight, pg.tile_rel,
-      pg.tile_blk_ptr, pg.t_senders_rel, pg.t_receivers_rel, pg.t_weight,
-      pg.t_tile_rel, pg.t_tile_blk_ptr, x)
+        check_vma=check_vma,
+    )(pg.senders_rel, pg.receivers_rel, pg.weight, pg.t_senders_rel,
+      pg.t_receivers_rel, pg.t_weight, x)

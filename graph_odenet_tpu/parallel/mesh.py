@@ -3,7 +3,7 @@
 The reference is single-process/single-GPU (SURVEY.md §1); its distributed
 story is rebuilt here the JAX way: one ``Mesh`` with named axes, shardings
 annotated with ``NamedSharding`` / ``shard_map``, collectives compiled by
-XLA over ICI (intra-slice) / DCN (inter-slice) — no NCCL, no MPI.
+XLA (which hands them to NCCL on GPUs) — no hand-written communication.
 """
 
 from __future__ import annotations

@@ -44,28 +44,14 @@ class PartitionedGraph:
       receivers_rel: i32[P, P, E_b]  receiver − p·B (local output row)
       weight:        f32[P, P, E_b]  0 on padding slots.
 
-    Buckets are sorted by local receiver, so each also carries the Pallas
-    CSR-tile metadata for the in-shard MXU segment-reduction kernel
-    (``halo.spmm_sharded(mode="ring_pallas")``):
-
-      tile_rel:     i32[P, P, E_b/128, 128]  receiver − tile·BLOCK_ROWS
-      tile_blk_ptr: i32[P, P, NB+1]          edge span per 128-row tile
-
-    Each bucket also carries a **transpose (CSC) view** — the same edges
-    sorted by local *sender* — so the training-step backward can reduce the
-    gather cotangent ``dchunk[s] = Σ_{e: s_e=s} w_e·g[r_e]`` with the same
-    sorted segment kernel instead of an XLA scatter-add (the scatter was
-    ~50% of config-4 step time before this existed):
+    Buckets are sorted by local receiver.  Each also carries a **transpose
+    (CSC) view** — the same edges sorted by local *sender* — so the ring's
+    backward reduces the gather cotangent ``dchunk[s] = Σ_{e: s_e=s}
+    w_e·g[r_e]`` over sender-grouped edges (``halo._bucket_spmm``):
 
       t_senders_rel:   i32[P, P, E_b]  sender − b·B, CSC edge order
       t_receivers_rel: i32[P, P, E_b]  receiver − p·B, CSC edge order
       t_weight:        f32[P, P, E_b]  0 on padding slots
-      t_tile_rel:      i32[P, P, E_b/128, 128]  sender − tile·BLOCK_ROWS
-      t_tile_blk_ptr:  i32[P, P, NB+1]          edge span per sender tile
-      t_perm:          i32[P, P, E_b]  CSC position → CSR position, so
-                       traced per-edge data (attention numerators) can be
-                       permuted into CSC order for the transpose reduce;
-                       padding slots map to padding slots.
 
     ``senders_global`` reconstructs global ids on the fly (b·B offset), so
     the all-gather path needs no second copy.
@@ -74,14 +60,9 @@ class PartitionedGraph:
     senders_rel: jax.Array
     receivers_rel: jax.Array
     weight: jax.Array
-    tile_rel: jax.Array
-    tile_blk_ptr: jax.Array
     t_senders_rel: jax.Array
     t_receivers_rel: jax.Array
     t_weight: jax.Array
-    t_tile_rel: jax.Array
-    t_tile_blk_ptr: jax.Array
-    t_perm: jax.Array
     block_size: int = dataclasses.field(metadata=dict(static=True))
     n_parts: int = dataclasses.field(metadata=dict(static=True))
     n_node_pad: int = dataclasses.field(metadata=dict(static=True))
@@ -104,12 +85,9 @@ def partition_by_receiver(
     all padded to the globally maximal bucket size (degree skew across
     blocks costs padding, not correctness — SURVEY.md §7 hard part 2).
 
-    Buckets are receiver-sorted.  The default ``edge_multiple`` (= Pallas
-    E_CHUNK) keeps buckets tile-aligned for ``mode="ring_pallas"``; smaller
-    multiples are fine for the segment-sum modes.
+    Buckets are receiver-sorted and padded to a multiple of
+    ``edge_multiple`` edges.
     """
-    from graph_odenet_tpu.ops.pallas_spmm import BLOCK_ROWS
-
     if g.n_node_pad % n_parts:
         raise ValueError(
             f"n_node_pad={g.n_node_pad} not divisible by n_parts={n_parts}; "
@@ -134,56 +112,30 @@ def partition_by_receiver(
             e_bucket = max(e_bucket, int(sel.sum()))
     e_bucket = _round_up(e_bucket, edge_multiple)
 
-    nb_local = -(-B // BLOCK_ROWS)
     senders_rel = np.zeros((n_parts, n_parts, e_bucket), dtype=np.int32)
     receivers_rel = np.zeros((n_parts, n_parts, e_bucket), dtype=np.int32)
     weight = np.zeros((n_parts, n_parts, e_bucket), dtype=np.float32)
-    blk_ptr = np.zeros((n_parts, n_parts, nb_local + 1), dtype=np.int32)
     t_senders_rel = np.zeros((n_parts, n_parts, e_bucket), dtype=np.int32)
     t_receivers_rel = np.zeros((n_parts, n_parts, e_bucket), dtype=np.int32)
     t_weight = np.zeros((n_parts, n_parts, e_bucket), dtype=np.float32)
-    t_blk_ptr = np.zeros((n_parts, n_parts, nb_local + 1), dtype=np.int32)
-    t_perm = np.tile(
-        np.arange(e_bucket, dtype=np.int32), (n_parts, n_parts, 1)
-    )
     for (p, b), (sp, rp, wp) in buckets.items():
         L = len(sp)
         senders_rel[p, b, :L] = sp
         receivers_rel[p, b, :L] = rp
         weight[p, b, :L] = wp
-        counts = np.bincount(rp // BLOCK_ROWS, minlength=nb_local)
-        np.cumsum(counts, out=blk_ptr[p, b, 1:])
         # CSC view: same edges sorted by local sender.
         order = np.argsort(sp, kind="stable")
         t_senders_rel[p, b, :L] = sp[order]
         t_receivers_rel[p, b, :L] = rp[order]
         t_weight[p, b, :L] = wp[order]
-        t_counts = np.bincount(sp[order] // BLOCK_ROWS, minlength=nb_local)
-        np.cumsum(t_counts, out=t_blk_ptr[p, b, 1:])
-        t_perm[p, b, :L] = order
-
-    def _as_tiles(rel):
-        rel = rel.astype(np.int32)
-        if e_bucket % 128 == 0:
-            return rel.reshape(n_parts, n_parts, e_bucket // 128, 128)
-        # tiny-test buckets; Pallas mode will reject these anyway
-        return rel.reshape(n_parts, n_parts, 1, e_bucket)
-
-    tile_rel = _as_tiles(receivers_rel % BLOCK_ROWS)
-    t_tile_rel = _as_tiles(t_senders_rel % BLOCK_ROWS)
 
     return PartitionedGraph(
         senders_rel=jnp.asarray(senders_rel),
         receivers_rel=jnp.asarray(receivers_rel),
         weight=jnp.asarray(weight),
-        tile_rel=jnp.asarray(tile_rel),
-        tile_blk_ptr=jnp.asarray(blk_ptr),
         t_senders_rel=jnp.asarray(t_senders_rel),
         t_receivers_rel=jnp.asarray(t_receivers_rel),
         t_weight=jnp.asarray(t_weight),
-        t_tile_rel=jnp.asarray(t_tile_rel),
-        t_tile_blk_ptr=jnp.asarray(t_blk_ptr),
-        t_perm=jnp.asarray(t_perm),
         block_size=B,
         n_parts=n_parts,
         n_node_pad=g.n_node_pad,

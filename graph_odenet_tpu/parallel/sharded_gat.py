@@ -15,14 +15,9 @@ arriving bucket into a **flash-style online softmax**:
       l      = l·exp(m − m_new) + segment_sum(exp(e − m_new))
     out = acc / l
 
-This is the same online update the fused single-chip Pallas kernel uses
-over E_CHUNKs (ops/pallas_gat.py), lifted to mesh granularity — the
-communication (ppermute) overlaps the local segment ops, and the whole
-thing is plain differentiable XLA (ppermute transposes to ppermute under
-AD).  The ``ring_pallas`` tier instead routes each hop through
-``halo._bucket_spmm_weighted`` — a custom VJP whose chunk cotangent
-reduces through the bucket's CSC view on the same MXU kernel (no XLA
-scatter-add) and whose residual keeps the softmax numerators at H lanes.
+The communication (ppermute) overlaps the local segment ops, and the
+whole thing is plain differentiable XLA (ppermute transposes to ppermute
+under AD).
 
 Padding edges inside each bucket are masked via ``pg.weight == 0`` (the
 partitioner zero-fills padding slots; GAT adjacencies are unnormalised so
@@ -53,7 +48,6 @@ def gat_sharded(
     negative_slope: float = 0.2,
     attn_rate: float = 0.0,
     attn_seed: jax.Array | None = None,
-    mode: str = "ring",
 ) -> jax.Array:
     """Masked-softmax attention aggregation, node rows sharded over ``axis``.
 
@@ -65,28 +59,13 @@ def gat_sharded(
       attn_rate/attn_seed: post-softmax attention dropout (the reference's
         GAT recipe).  The mask is the counter-based ``ops.dropmask`` hash
         of GLOBAL (sender, receiver, head, seed) — partitioning-invariant,
-        and bit-identical to the single-chip Pallas path given the same
-        seed.  Numerators only; the softmax denominator keeps every edge
-        (same convention as ops/pallas_gat).
+        and identical to the single-device ``ops.sddmm`` mask given the
+        same seed.  Numerators only; the softmax denominator keeps every
+        edge.
 
     Returns f32[N_pad, H, F], same sharding as the inputs (P(axis) rows).
     Matches the single-device ``ops.sddmm`` path to float tolerance.
 
-    ``mode``:
-      * ``"ring"``        — flash-style online softmax with XLA segment ops
-        per ring hop (runs anywhere; the round-2..4 path).
-      * ``"ring_pallas"`` — the kernel-speed tier (VERDICT r4 #2).
-        Receiver-block partitioning makes every receiver's edge set
-        shard-local, so the softmax needs no cross-hop flash merge at all
-        *if the scores are known up front* — and the score table
-        ``s_src`` is only [N, H] (H ≤ 8 lanes), ~F× smaller than the
-        value table the ring exists to avoid materialising.  So: one tiny
-        ``all_gather(s_src)``, one exact local segment softmax over the
-        shard's edges, then each ring hop is a *weighted* receiver-sorted
-        bucket reduction on the Pallas CSR-tile MXU kernel
-        (``halo._bucket_spmm_weighted`` — custom VJP, so the training
-        step keeps kernel speed in the backward too).  Requires the
-        partitioner's default alignment (``e_bucket % E_CHUNK == 0``).
     """
     n_parts = mesh.shape[axis]
     if pg.n_parts != n_parts:
@@ -100,14 +79,6 @@ def gat_sharded(
         jnp.asarray(attn_seed, jnp.uint32).reshape(())
         if use_drop else jnp.uint32(0)
     )
-    if mode == "ring_pallas":
-        return _gat_sharded_pallas(
-            pg, s_src, s_dst, wh, mesh, axis=axis,
-            negative_slope=negative_slope, attn_rate=attn_rate,
-            seed_arr=seed_arr, use_drop=use_drop,
-        )
-    if mode != "ring":
-        raise ValueError(f"unknown mode {mode!r}")
 
     def kernel(senders_rel, receivers_rel, weight, ssrc_shard, sdst_shard,
                wh_shard, seed):
@@ -186,118 +157,6 @@ def gat_sharded(
       seed_arr)
 
 
-def _gat_sharded_pallas(
-    pg, s_src, s_dst, wh, mesh, *, axis, negative_slope, attn_rate,
-    seed_arr, use_drop,
-):
-    """Kernel-speed sharded attention (see ``gat_sharded`` docstring)."""
-    from graph_odenet_tpu.ops.pallas_spmm import E_CHUNK
-    from graph_odenet_tpu.parallel.halo import _bucket_spmm_weighted
-
-    n_parts = mesh.shape[axis]
-    B = pg.block_size
-    heads, feat = wh.shape[-2], wh.shape[-1]
-    hf = heads * feat
-    if pg.e_bucket % E_CHUNK or B % 8:
-        raise ValueError(
-            "ring_pallas needs e_bucket % E_CHUNK == 0 and block_size % 8 "
-            f"== 0; got {pg.e_bucket}, {B} — partition with the default "
-            "edge_multiple"
-        )
-
-    def kernel(senders_rel, receivers_rel, weight, rel2d, blk_ptr,
-               t_receivers_rel, t_rel2d, t_blk_ptr, t_perm,
-               ssrc_shard, sdst_shard, wh_shard, seed):
-        me = jax.lax.axis_index(axis)
-        perm = [((i + 1) % n_parts, i) for i in range(n_parts)]
-
-        # 1. Tiny score gather: [P·B, H] — H lanes, not H·F.
-        ssrc_full = jax.lax.all_gather(ssrc_shard, axis, tiled=True)
-
-        # 2. Exact local softmax over ALL the shard's edges at once (the
-        # receiver blocks are shard-local, so no flash merge exists).
-        offs = jnp.arange(n_parts, dtype=jnp.int32) * B
-        snd_glob = (senders_rel[0] + offs[:, None]).reshape(-1)  # [P·E_b]
-        r_flat = receivers_rel[0].reshape(-1)
-        real = (weight[0] != 0.0).reshape(-1)[:, None]
-        e = jax.nn.leaky_relu(
-            jnp.take(ssrc_full, snd_glob, axis=0)
-            + jnp.take(sdst_shard, r_flat, axis=0),
-            negative_slope=negative_slope,
-        )                                                        # [P·E_b, H]
-        e = jnp.where(real, e, _NEG)
-        m = jax.ops.segment_max(e, r_flat, num_segments=B)       # [B, H]
-        m = jnp.maximum(m, _NEG)
-        p = jnp.where(real, jnp.exp(e - jnp.take(m, r_flat, axis=0)), 0.0)
-        l = jax.ops.segment_sum(p, r_flat, num_segments=B)       # [B, H]
-        if use_drop:
-            from graph_odenet_tpu.ops.dropmask import (
-                attention_dropout_scale,
-            )
-
-            # Numerators only — the denominator keeps every edge (the
-            # single-chip kernel's convention); keyed on GLOBAL ids so the
-            # mask is partitioning-invariant.
-            p_v = p * attention_dropout_scale(
-                seed, snd_glob, me * B + r_flat, heads, attn_rate
-            )
-        else:
-            p_v = p
-        # Per-head numerators stay [·, H] — the H·F-lane broadcast happens
-        # inside _bucket_spmm_weighted's fwd and is recomputed in its bwd,
-        # so the residual is F× smaller than materialising the lanes here.
-        pv3_h = p_v.reshape(n_parts, -1, heads)
-
-        # 3. Ring over value chunks: each hop is ONE weighted Pallas
-        # bucket reduction (MXU CSR tiles), DMA of the next chunk in
-        # flight behind it; the custom vjp reduces the chunk cotangent
-        # through the bucket's CSC view (no XLA scatter-add).
-        def body(k, carry):
-            out, chunk = carry
-            src_block = (me + k) % n_parts
-            nxt = jax.lax.ppermute(chunk, axis, perm=perm)
-
-            def take(a):
-                return jnp.take(a[0], src_block, axis=0)
-
-            out = out + _bucket_spmm_weighted(
-                B, feat, chunk, jnp.take(pv3_h, src_block, axis=0),
-                take(senders_rel), take(receivers_rel),
-                take(rel2d), take(blk_ptr),
-                take(t_receivers_rel), take(t_rel2d), take(t_blk_ptr),
-                take(t_perm),
-            )
-            return out, nxt
-
-        out0 = jax.lax.pcast(
-            jnp.zeros((B, hf), wh_shard.dtype), (axis,), to="varying"
-        )
-        out, _ = jax.lax.fori_loop(
-            0, n_parts, body, (out0, wh_shard.reshape(B, hf))
-        )
-        return (
-            out.reshape(B, heads, feat)
-            / jnp.maximum(l, 1e-30)[..., None]
-        )
-
-    edge_spec = P(axis, None, None)
-    row = P(axis, None)
-    tile_spec = P(axis, None, None, None)
-    ptr_spec = P(axis, None, None)
-    return jax.shard_map(
-        kernel,
-        mesh=mesh,
-        in_specs=(edge_spec, edge_spec, edge_spec, tile_spec, ptr_spec,
-                  edge_spec, tile_spec, ptr_spec, edge_spec,
-                  row, row, P(axis, None, None), P()),
-        out_specs=P(axis, None, None),
-        # pallas_call's out ShapeDtypeStruct carries no vma annotation.
-        check_vma=False,
-    )(pg.senders_rel, pg.receivers_rel, pg.weight, pg.tile_rel,
-      pg.tile_blk_ptr, pg.t_receivers_rel, pg.t_tile_rel,
-      pg.t_tile_blk_ptr, pg.t_perm, s_src, s_dst, wh, seed_arr)
-
-
 # --- sharded GAT-ODE model (mirror of parallel.sharded_gcn) ---------------
 #
 # The functional edge-parallel counterpart of models.odeblock.GATODE
@@ -335,7 +194,7 @@ def init_gatode_params(
 
 
 def _att_layer(pg, mesh, axis, h, w, a_src, a_dst, attn_rate=0.0,
-               attn_seed=None, mode="ring"):
+               attn_seed=None):
     """One sharded GAT layer: scores per head then masked-softmax attention."""
     heads, feat = a_src.shape
     wh = (h @ w).reshape(h.shape[0], heads, feat)
@@ -343,7 +202,7 @@ def _att_layer(pg, mesh, axis, h, w, a_src, a_dst, attn_rate=0.0,
     s_dst = jnp.einsum("nhf,hf->nh", wh, a_dst)
     out = gat_sharded(
         pg, s_src, s_dst, wh, mesh, axis=axis,
-        attn_rate=attn_rate, attn_seed=attn_seed, mode=mode,
+        attn_rate=attn_rate, attn_seed=attn_seed,
     )
     return out.reshape(h.shape[0], heads * feat)
 
@@ -351,7 +210,7 @@ def _att_layer(pg, mesh, axis, h, w, a_src, a_dst, attn_rate=0.0,
 def gatode_forward(
     params, pg: PartitionedGraph, x, mesh: Mesh, *, steps: int = 4,
     t1: float = 1.0, axis: str = "edge", dropout: float = 0.0, rng=None,
-    mode: str = "ring", remat: bool = False,
+    remat: bool = False,
 ):
     """log-probs [N_pad, C]; node rows sharded P('edge') throughout.
 
@@ -370,7 +229,7 @@ def gatode_forward(
         attn_seed = seed_from_key(k1)
         x = _feature_dropout(x, k0, dropout)
     att = lambda h, w, a_s, a_d, **kw: _att_layer(
-        pg, mesh, axis, h, w, a_s, a_d, mode=mode, **kw
+        pg, mesh, axis, h, w, a_s, a_d, **kw
     )
     h = jax.nn.elu(att(
         x, params["w_enc"], params["a_src_enc"], params["a_dst_enc"],
@@ -384,8 +243,8 @@ def gatode_forward(
 
     if remat:
         # Store only the rk4 stage inputs; recompute attention internals in
-        # the backward — at arxiv scale the 16 dyn evals' saved activations
-        # otherwise exceed HBM (29.5 GB needed vs 15.75 at scale 1.0).
+        # the backward, so the 4·steps dynamics evaluations do not each
+        # keep their [E, H·F] messages alive.
         dyn = jax.checkpoint(dyn)
 
     dt = t1 / steps

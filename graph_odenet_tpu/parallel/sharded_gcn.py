@@ -1,6 +1,6 @@
 """Functional edge-parallel GCN-ODE training step (BASELINE config[4] shape).
 
-A deliberately self-contained (no flax) parameterisation of the flagship
+A deliberately self-contained parameterisation of the flagship
 model — encoder conv → rk4-integrated graph-conv dynamics → readout — whose
 aggregations all go through ``spmm_sharded``, so the entire train step
 (forward, backward, update) jits over a ``Mesh`` with:
@@ -11,7 +11,7 @@ aggregations all go through ``spmm_sharded``, so the entire train step
   * XLA inserting psums for the parameter gradients automatically.
 
 This is the multi-chip path the driver dry-runs; the losses/updates match
-the single-device flax model semantically (same math, same solver).
+the single-device ``models.GCNODE`` semantically (same math, same solver).
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ so the whole step — forward, backward, Adam update — is one jitted XLA
 program over a ``Mesh``, with node rows sharded P("edge"), parameters
 replicated, and parameter-gradient psums inserted by XLA.
 
-Fault tolerance: orbax checkpoints (params + opt state + epoch) every
+Fault tolerance: checkpoints (params + opt state + epoch) every
 ``ckpt_every`` epochs when ``ckpt_dir`` is set; a restarted call resumes
 from the latest step (same contract ``tests/test_fault_recovery.py`` pins
 for the single-device trainer).
@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+from jax.sharding import NamedSharding, PartitionSpec
 
 from graph_odenet_tpu.data.planetoid import NodeClassificationData
 from graph_odenet_tpu.parallel.mesh import make_mesh
@@ -43,8 +44,8 @@ class ShardedTrainConfig:
     heads: int = 4               # gatode only
     steps: int = 4               # rk4 substeps
     t1: float = 1.0
-    mode: str = "ring"           # halo exchange flavour: ring | ring_pallas
-                                 # | allgather (gcnode only for allgather)
+    mode: str = "ring"           # halo exchange flavour: ring | allgather
+                                 # (gcnode only for allgather)
     lr: float = 0.01
     weight_decay: float = 5e-4
     # Feature (+ attention, gatode) dropout — the reference recipe uses 0.5
@@ -57,7 +58,7 @@ class ShardedTrainConfig:
     eval_every: Optional[int] = None
     seed: int = 0
     # Checkpoint the ODE dynamics (recompute attention internals in the
-    # backward) — required for full-scale arxiv GAT-ODE on one chip.
+    # backward) — trades compute for the memory of stored activations.
     remat: bool = False
     n_parts: Optional[int] = None   # default: all visible devices
     edge_multiple: int = 1024
@@ -83,7 +84,12 @@ def fit_sharded_node_classifier(
             devices=jax.devices()[:n_parts],
         )
     g = data.graph
-    pg = partition_by_receiver(g, n_parts, edge_multiple=cfg.edge_multiple)
+    # Bucket row p lives on device p, where the shard_map steps read it:
+    # placed once here, not resharded from one device at every step.
+    pg = jax.device_put(
+        partition_by_receiver(g, n_parts, edge_multiple=cfg.edge_multiple),
+        NamedSharding(mesh, PartitionSpec("edge")),
+    )
     n_pad, f_in, c = g.n_node_pad, data.features.shape[1], data.n_class
 
     labels_1h = jax.nn.one_hot(data.labels, c, dtype=jnp.float32)  # −1 → 0s
@@ -96,20 +102,28 @@ def fit_sharded_node_classifier(
         data.labels,
     )
 
+    # The graph and the data enter the steps as arguments: closed over,
+    # they would become constants of the executable, copied into it and
+    # constant-folded at compile time.
+    d = dict(pg=pg, x=x, y=y1h, w_tr=w_tr, w_va=w_va, w_te=w_te,
+             labels=labels)
+
     rng = jax.random.PRNGKey(cfg.seed)
     if cfg.model == "gcnode":
         params = sharded_gcn.init_params(rng, f_in, cfg.hidden, c)
-        fwd = lambda p, key=None: sharded_gcn.forward(
-            p, pg, x, mesh, steps=cfg.steps, t1=cfg.t1, mode=cfg.mode,
-            dropout=cfg.dropout, rng=key,
+        fwd = lambda p, d, key=None: sharded_gcn.forward(
+            p, d["pg"], d["x"], mesh, steps=cfg.steps, t1=cfg.t1,
+            mode=cfg.mode, dropout=cfg.dropout, rng=key,
         )
     elif cfg.model == "gatode":
+        if cfg.mode != "ring":
+            raise ValueError(f"sharded gatode runs mode 'ring', not {cfg.mode!r}")
         params = sharded_gat.init_gatode_params(
             rng, f_in, cfg.hidden, cfg.heads, c
         )
-        fwd = lambda p, key=None: sharded_gat.gatode_forward(
-            p, pg, x, mesh, steps=cfg.steps, t1=cfg.t1,
-            dropout=cfg.dropout, rng=key, mode=cfg.mode, remat=cfg.remat,
+        fwd = lambda p, d, key=None: sharded_gat.gatode_forward(
+            p, d["pg"], d["x"], mesh, steps=cfg.steps, t1=cfg.t1,
+            dropout=cfg.dropout, rng=key, remat=cfg.remat,
         )
     else:
         raise ValueError(f"unknown sharded model {cfg.model!r}")
@@ -120,30 +134,30 @@ def fit_sharded_node_classifier(
     )
     opt_state = tx.init(params)
 
-    def masked_nll(lp, w):
-        per_node = -jnp.sum(lp * y1h, axis=-1) * w
+    def masked_nll(lp, d, w):
+        per_node = -jnp.sum(lp * d["y"], axis=-1) * w
         return jnp.sum(per_node) / jnp.maximum(jnp.sum(w), 1.0)
 
-    def masked_acc(lp, w):
-        hit = (jnp.argmax(lp, axis=-1) == labels).astype(jnp.float32) * w
-        return jnp.sum(hit) / jnp.maximum(jnp.sum(w), 1.0)
+    def masked_acc(lp, d, w):
+        hit = (jnp.argmax(lp, axis=-1) == d["labels"]).astype(jnp.float32)
+        return jnp.sum(hit * w) / jnp.maximum(jnp.sum(w), 1.0)
 
     @jax.jit
-    def train_step(params, opt_state, key):
+    def train_step(params, opt_state, key, d):
         loss, grads = jax.value_and_grad(
-            lambda p: masked_nll(fwd(p, key), w_tr)
+            lambda p: masked_nll(fwd(p, d, key), d, d["w_tr"])
         )(params)
         updates, opt_state = tx.update(grads, opt_state, params)
         return optax.apply_updates(params, updates), opt_state, loss
 
     @jax.jit
-    def evaluate(params):
-        lp = fwd(params)
+    def evaluate(params, d):
+        lp = fwd(params, d)
         return dict(
-            train_acc=masked_acc(lp, w_tr),
-            val_loss=masked_nll(lp, w_va),
-            val_acc=masked_acc(lp, w_va),
-            test_acc=masked_acc(lp, w_te),
+            train_acc=masked_acc(lp, d, d["w_tr"]),
+            val_loss=masked_nll(lp, d, d["w_va"]),
+            val_acc=masked_acc(lp, d, d["w_va"]),
+            test_acc=masked_acc(lp, d, d["w_te"]),
         )
 
     ckpt = None
@@ -157,10 +171,8 @@ def fit_sharded_node_classifier(
             state = ckpt.restore(
                 dict(params=params, opt_state=opt_state, epoch=0)
             )
-            # Orbax restores onto the default device; replicate across the
-            # mesh so the arrays are commensurate with the shard_map step.
-            from jax.sharding import NamedSharding, PartitionSpec
-
+            # Restored leaves are host arrays; replicate them across the
+            # mesh so they are commensurate with the shard_map step.
             rep = NamedSharding(mesh, PartitionSpec())
             params, opt_state = jax.device_put(
                 (state["params"], state["opt_state"]), rep
@@ -178,7 +190,7 @@ def fit_sharded_node_classifier(
     for epoch in range(start_epoch, cfg.epochs):
         t_step = time.perf_counter()
         params, opt_state, loss = train_step(
-            params, opt_state, jax.random.fold_in(drop_rng, epoch)
+            params, opt_state, jax.random.fold_in(drop_rng, epoch), d
         )
         loss = float(jax.block_until_ready(loss))
         if epoch > start_epoch:  # steady state: skip the compile epoch
@@ -186,7 +198,7 @@ def fit_sharded_node_classifier(
             step_ms = dt if step_ms is None else min(step_ms, dt)
         losses.append(loss)
         if epoch % eval_every == 0 or epoch == cfg.epochs - 1:
-            m = {k: float(v) for k, v in evaluate(params).items()}
+            m = {k: float(v) for k, v in evaluate(params, d).items()}
             if m["val_loss"] < best["val_loss"]:
                 best = dict(
                     val_loss=m["val_loss"], val_acc=m["val_acc"],
@@ -200,12 +212,8 @@ def fit_sharded_node_classifier(
                     break
         if ckpt and (epoch % cfg.ckpt_every == 0 or epoch == cfg.epochs - 1):
             ckpt.save(
-                epoch,
-                dict(params=params, opt_state=opt_state, epoch=epoch),
-                wait=True,
+                epoch, dict(params=params, opt_state=opt_state, epoch=epoch)
             )
-    if ckpt:
-        ckpt.close()
     return dict(
         test_acc=best["test_acc"],
         val_acc=best["val_acc"],

@@ -3,16 +3,16 @@
 Parity with the reference ``train.py``: Adam(lr 0.01, weight-decay 5e-4 as
 L2-in-gradient), full-graph forward, NLL on the train indices, early
 stopping on validation loss (GAT patience ~100), final test accuracy, seed
-control.  TPU deltas: the epoch step is one jitted function (forward +
-backward + update all on device), GCN-family models aggregate through the
-densified Â on the MXU for Cora-scale graphs, and metrics stream as JSONL.
+control.  Deltas: the epoch step is one jitted function (forward +
+backward + update all on device), GCN-family models may aggregate
+through a densified Â, and metrics stream as JSONL.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Optional, Union
+from typing import Optional, Union
 
 import jax
 import jax.numpy as jnp
@@ -23,7 +23,7 @@ from graph_odenet_tpu.models import GAT, GCN, GATODE, GCNODE, ResGAT, ResGCN
 from graph_odenet_tpu.utils.logging import MetricsLogger
 from graph_odenet_tpu.utils.metrics import masked_accuracy, masked_nll
 
-__all__ = ["NodeClassConfig", "build_model", "fit_node_classifier"]
+__all__ = ["NodeClassConfig", "adjacency", "build_model", "fit_node_classifier"]
 
 
 @dataclasses.dataclass
@@ -47,12 +47,9 @@ class NodeClassConfig:
     epochs: int = 200
     patience: int = 100
     seed: int = 42
-    # Aggregation path: dense Â on the MXU (GCN family only).
-    dense_adj: bool = True
-    # Explicit adjacency representation override: "dense" | "segment" |
-    # "pallas" (CSR-tile Pallas kernels — TPU only).  None → the dense_adj
-    # auto rule above.
-    representation: Optional[str] = None
+    # Adjacency: "segment" (edge list, every model) or "dense" (Â densified
+    # once, each aggregation one matmul; GCN family only).
+    representation: str = "segment"
     log_path: Optional[str] = None
     echo: bool = False
 
@@ -79,58 +76,34 @@ def build_model(cfg: NodeClassConfig, n_class: int):
     raise ValueError(f"unknown model {cfg.model!r}")
 
 
-def choose_representation(graph, model: str) -> str:
-    """Scale-aware adjacency-representation dispatch (measured, TPU v5e):
+def adjacency(data: NodeClassificationData, representation: str, model: str):
+    """The adjacency ``model`` aggregates over: the edge list ("segment")
+    or, for the GCN family, the densified Â ("dense").
 
-      * GCN family at ≤16K nodes → dense Â on the MXU (N² f32 ≤ 1 GB is
-        wasteful in memory but a single fused matmul wins on wall-clock at
-        Cora/Citeseer scale);
-      * larger graphs (or any scale on non-TPU backends where the Pallas
-        kernels run interpreted) → CSR-tile Pallas kernels on TPU, segment
-        ops elsewhere.
-
-    GAT-family models take the Pallas edge-list path on TPU at every scale
-    (measured: fused kernels win 2.5× at Cora scale and 1.8× at arxiv
-    scale over the segment path) and segment ops elsewhere.
+    The edge list is the default at every size.  On one NVIDIA H100 80GB
+    HBM3 (chip_smoke.py's ``repr`` phase) a dense Â never won beyond
+    run-to-run noise: GCN-ODE epochs tie at 768 to 3,328 padded nodes,
+    with the order flipping between runs, and at pubmed (19,840 nodes) the
+    edge list is 11× faster.  A dense aggregation is also a matmul, which
+    the GPU runs in TF32 by default, where the edge list sums in f32.
     """
-    import jax
-
-    on_tpu = jax.default_backend() == "tpu"
-    is_gcn_family = model in ("gcn", "resgcn", "gcnode")
-    if not is_gcn_family:
-        return "pallas" if on_tpu else "segment"
-    if graph.n_node_pad <= 16_384:
-        return "dense"
-    return "pallas" if on_tpu else "segment"
+    if representation == "segment":
+        return data.graph
+    if representation == "dense":
+        if model not in ("gcn", "resgcn", "gcnode"):
+            raise ValueError(f"{model!r} scores edges; it needs 'segment'")
+        return data.dense_adj()
+    raise ValueError(f"unknown representation {representation!r}")
 
 
 def fit_node_classifier(cfg: NodeClassConfig, data: NodeClassificationData):
     """Train + early-stop + test.  Returns a results dict."""
     model = build_model(cfg, data.n_class)
-    is_gcn_family = cfg.model in ("gcn", "resgcn", "gcnode")
-    representation = cfg.representation
-    if representation is None:
-        representation = (
-            choose_representation(data.graph, cfg.model)
-            if cfg.dense_adj
-            else "segment"
-        )
-    if representation == "dense":
-        adj = data.dense_adj()
-    elif representation == "segment":
-        adj = data.graph
-    elif representation == "pallas":
-        from graph_odenet_tpu.ops.pallas_spmm import prepare
-
-        adj = prepare(data.graph)
-    else:
-        raise ValueError(f"unknown representation {representation!r}")
+    adj = adjacency(data, cfg.representation, cfg.model)
 
     rng = jax.random.PRNGKey(cfg.seed)
     rng, init_rng = jax.random.split(rng)
-    params = model.init(
-        {"params": init_rng}, adj, data.features, deterministic=True
-    )["params"]
+    params = model.init(init_rng, adj, data.features)
 
     # Reference: torch Adam(weight_decay) = L2 added to gradients.
     tx = optax.chain(
@@ -139,38 +112,58 @@ def fit_node_classifier(cfg: NodeClassConfig, data: NodeClassificationData):
     )
     opt_state = tx.init(params)
 
-    @jax.jit
-    def train_step(params, opt_state, dropout_rng):
+    # The graph and the data enter the steps as arguments: closed over,
+    # they would become constants of the executable, copied into it and
+    # constant-folded at compile time.
+    d = dict(
+        adj=adj, x=data.features, labels=data.labels,
+        train=data.idx_train, val=data.idx_val, test=data.idx_test,
+    )
+
+    def train_step(params, opt_state, dropout_rng, d):
         def loss_fn(p):
-            out = model.apply(
-                {"params": p}, adj, data.features,
-                deterministic=False, rngs={"dropout": dropout_rng},
+            out, stats = model.apply(
+                p, d["adj"], d["x"], deterministic=False, rng=dropout_rng,
             )
-            return masked_nll(out, data.labels, data.idx_train)
+            return masked_nll(out, d["labels"], d["train"]), stats
 
-        loss, grads = jax.value_and_grad(loss_fn)(params)
+        (loss, stats), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+            params
+        )
         updates, opt_state = tx.update(grads, opt_state, params)
-        return optax.apply_updates(params, updates), opt_state, loss
+        nfe = stats.get("nfe", jnp.zeros((), jnp.int32))
+        return optax.apply_updates(params, updates), opt_state, loss, nfe
+
+    # Compiled ahead of the loop so the caller can read its memory use.
+    rng, drop_rng = jax.random.split(rng)
+    train_step = (
+        jax.jit(train_step).lower(params, opt_state, drop_rng, d).compile()
+    )
 
     @jax.jit
-    def eval_step(params):
-        out = model.apply({"params": params}, adj, data.features, deterministic=True)
+    def eval_step(params, d):
+        out, _ = model.apply(params, d["adj"], d["x"], deterministic=True)
+        lab = d["labels"]
         return dict(
-            train_acc=masked_accuracy(out, data.labels, data.idx_train),
-            val_loss=masked_nll(out, data.labels, data.idx_val),
-            val_acc=masked_accuracy(out, data.labels, data.idx_val),
-            test_acc=masked_accuracy(out, data.labels, data.idx_test),
+            train_acc=masked_accuracy(out, lab, d["train"]),
+            val_loss=masked_nll(out, lab, d["val"]),
+            val_acc=masked_accuracy(out, lab, d["val"]),
+            test_acc=masked_accuracy(out, lab, d["test"]),
         )
 
     log = MetricsLogger(cfg.log_path, echo=cfg.echo)
     best = dict(val_loss=float("inf"), test_acc=0.0, val_acc=0.0, epoch=-1)
     best_params = params
     bad_epochs = 0
+    epoch_seconds = []
     t_start = time.time()
     for epoch in range(cfg.epochs):
+        t_epoch = time.perf_counter()
+        params, opt_state, loss, nfe = train_step(
+            params, opt_state, drop_rng, d
+        )
         rng, drop_rng = jax.random.split(rng)
-        params, opt_state, loss = train_step(params, opt_state, drop_rng)
-        m = eval_step(params)
+        m = eval_step(params, d)
         log.write(epoch=epoch, loss=loss, **m)
         if float(m["val_loss"]) < best["val_loss"]:
             best = dict(
@@ -183,8 +176,9 @@ def fit_node_classifier(cfg: NodeClassConfig, data: NodeClassificationData):
             bad_epochs = 0
         else:
             bad_epochs += 1
-            if bad_epochs > cfg.patience:
-                break
+        epoch_seconds.append(time.perf_counter() - t_epoch)
+        if bad_epochs > cfg.patience:
+            break
     log.close()
     return dict(
         best=best,
@@ -192,4 +186,11 @@ def fit_node_classifier(cfg: NodeClassConfig, data: NodeClassificationData):
         epochs_run=epoch + 1,
         seconds=time.time() - t_start,
         final_test_acc=best["test_acc"],
+        # Wall time of each epoch (train step + eval), ended by the host
+        # reading the eval loss; the first includes the eval compilation.
+        epoch_seconds=epoch_seconds,
+        loss=float(loss),
+        # Dynamics evaluations in the last training step (0: no ODE block).
+        nfe=int(nfe),
+        train_step=train_step,
     )

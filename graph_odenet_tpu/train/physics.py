@@ -4,7 +4,7 @@ rollout, and IN-ODE trajectory fitting (SURVEY.md §2 R11, §3.4).
 Parity: the reference trains the interaction network on (state_t →
 vel_{t+1}) pairs with MSE + Adam, then evaluates by feeding predictions
 back autoregressively (discrete) or integrating long spans (ODE), reporting
-rollout-MSE curves.  TPU deltas: minibatches are sharded device arrays, the
+rollout-MSE curves.  Deltas: minibatches are device arrays, the
 rollout feedback loop is a ``lax.scan`` (the reference steps it from host
 Python), and input standardisation constants are computed on device.
 """
@@ -49,9 +49,9 @@ class PhysicsConfig:
     ode_method: str = "dopri5_scan"
     ode_steps: int = 16
     ode_window: int = 10        # trajectory timesteps fitted per sample
-    ode_remat: bool = True      # remat dynamics in the solver scan — at
-                                # batch 512 the stored relation-MLP
-                                # activations otherwise need ~30 GB HBM
+    ode_remat: bool = True      # remat dynamics in the solver scan: the
+                                # scan otherwise stores every relation-MLP
+                                # activation of every stage, per sample
     rtol: float = 1e-4
     atol: float = 1e-6
     log_path: Optional[str] = None
@@ -89,13 +89,13 @@ def fit_interaction_network(cfg: PhysicsConfig, trajs=None, system=None):
         """states [B, N, 1+2D] → predicted next-step velocity [B, N, D]."""
         norm = (states - in_mean) / in_std
         return jax.vmap(
-            lambda o: model.apply({"params": params}, o, senders, receivers)
+            lambda o: model.apply(params, o, senders, receivers)
         )(norm)
 
     key, ikey = jax.random.split(key)
     params = model.init(
         ikey, (inputs[0] - in_mean) / in_std, senders, receivers
-    )["params"]
+    )
     tx = optax.adam(cfg.lr)
     opt_state = tx.init(params)
 
@@ -197,14 +197,15 @@ def fit_inode(cfg: PhysicsConfig, trajs=None, system=None):
     def forward(params, window0):
         """window0 [N, 1+2D] at t=0 → predicted [W+1, N, 2D]."""
         y0 = window0[..., 1:]
-        return model.apply(
-            {"params": params}, y0, ts, window0[..., :1], senders, receivers
+        traj, _ = model.apply(
+            params, y0, ts, window0[..., :1], senders, receivers
         )
+        return traj
 
     key, ikey = jax.random.split(key)
     params = model.init(
         ikey, wins[0, 0, :, 1:], ts, mass0, senders, receivers
-    )["params"]
+    )
     tx = optax.adam(cfg.lr)
     opt_state = tx.init(params)
 
@@ -291,9 +292,8 @@ def physics_rollout_curves(cfg: PhysicsConfig, horizon: int = 50, n_test: int = 
     @jax.jit
     def ode_roll(params, init):
         def one(w0):
-            y = long_model.apply(
-                {"params": params}, w0[..., 1:], ts, w0[..., :1],
-                senders, receivers,
+            y, _ = long_model.apply(
+                params, w0[..., 1:], ts, w0[..., :1], senders, receivers,
             )  # [T, N, 2D]
             mass = jnp.broadcast_to(
                 w0[None, :, :1], (y.shape[0],) + w0[..., :1].shape

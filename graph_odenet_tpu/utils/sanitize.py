@@ -1,16 +1,8 @@
 """Sanitizers (SURVEY.md §5 "race detection / sanitizers" row).
 
-XLA programs are data-race-free by construction, so the TPU-native
-equivalents of the reference stack's sanitizers are numeric and
-index-bounds checks:
+XLA programs are data-race-free by construction, so the equivalent of the
+reference stack's sanitizers here is a numeric check:
 
-  * :func:`validate_tiling` — host-side invariants of the ``PallasCSR``
-    metadata that the Pallas kernels' index math relies on (monotone block
-    pointers, in-range block-relative indices, chunk-aligned padding).
-    Violations would make kernels read out of bounds or mis-accumulate;
-    ``prepare()`` runs this on every tiling it builds.
-  * :func:`checkify_tiling` — the same invariants as ``checkify`` checks,
-    composable under jit for tilings that arrive as traced arrays.
   * :func:`odeint_checked` — ``ode.odeint`` wrapped in
     ``jax.experimental.checkify``: reports non-finite solver states (NaN
     injection anywhere in the dynamics surfaces as a checked error, not
@@ -22,88 +14,9 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import checkify
 
-__all__ = ["validate_tiling", "checkify_tiling", "odeint_checked"]
-
-
-def validate_tiling(csr) -> None:
-    """Host-side bounds checks for Pallas CSR/CSC tile metadata.
-
-    Raises ``ValueError`` on the first violated invariant.  Cheap (numpy,
-    O(E)) — run once per ``prepare()``.
-    """
-    from graph_odenet_tpu.ops.pallas_spmm import BLOCK_ROWS, E_CHUNK
-
-    e_pad = csr.senders.shape[0]
-    nb = csr.n_blocks
-    if e_pad % E_CHUNK:
-        raise ValueError(f"edge padding {e_pad} not a multiple of {E_CHUNK}")
-    for tag, ptr in (("csr", csr.blk_ptr), ("csc", csr.t_blk_ptr)):
-        p = np.asarray(ptr)
-        if p.shape[0] != nb + 1:
-            raise ValueError(f"{tag} blk_ptr has {p.shape[0]} != {nb + 1} entries")
-        if p[0] != 0 or p[-1] > e_pad or np.any(np.diff(p) < 0):
-            raise ValueError(f"{tag} blk_ptr not monotone within [0, {e_pad}]")
-    for tag, rel in (("csr", csr.rel), ("csc", csr.t_rel)):
-        r = np.asarray(rel)
-        if r.min() < 0 or r.max() >= BLOCK_ROWS:
-            raise ValueError(
-                f"{tag} rel out of [0, {BLOCK_ROWS}): [{r.min()}, {r.max()}]"
-            )
-    for tag, idx in (
-        ("senders", csr.senders),
-        ("t_receivers", csr.t_receivers),
-    ):
-        i = np.asarray(idx)
-        if i.min() < 0 or i.max() >= csr.n_node_pad:
-            raise ValueError(
-                f"{tag} out of [0, {csr.n_node_pad}): [{i.min()}, {i.max()}]"
-            )
-    t_perm = np.asarray(csr.t_perm)
-    if t_perm.min() < 0 or t_perm.max() >= e_pad:
-        raise ValueError(f"t_perm out of [0, {e_pad})")
-
-
-def checkify_tiling(csr):
-    """The ``validate_tiling`` invariants as jit-composable checkify checks.
-
-    Returns a ``checkify.Error``; call ``.throw()`` (or inspect) outside
-    jit.  Usage::
-
-        err = jax.jit(checkify_tiling)(csr)
-        err.throw()
-    """
-    from graph_odenet_tpu.ops.pallas_spmm import BLOCK_ROWS
-
-    def checks(csr):
-        e_pad = csr.senders.shape[0]
-        for tag, ptr in (("csr", csr.blk_ptr), ("csc", csr.t_blk_ptr)):
-            checkify.check(
-                (ptr[0] == 0)
-                & (ptr[-1] <= e_pad)
-                & jnp.all(jnp.diff(ptr) >= 0),
-                tag + " blk_ptr not monotone in range",
-            )
-        for tag, rel in (("csr", csr.rel), ("csc", csr.t_rel)):
-            checkify.check(
-                (rel.min() >= 0) & (rel.max() < BLOCK_ROWS),
-                tag + " rel index out of block range",
-            )
-        checkify.check(
-            (csr.senders.min() >= 0) & (csr.senders.max() < csr.n_node_pad),
-            "senders out of node range",
-        )
-        checkify.check(
-            (csr.t_receivers.min() >= 0)
-            & (csr.t_receivers.max() < csr.n_node_pad),
-            "t_receivers out of node range",
-        )
-        return jnp.zeros(())
-
-    err, _ = checkify.checkify(checks)(csr)
-    return err
+__all__ = ["odeint_checked"]
 
 
 def odeint_checked(func, y0, ts, *args, throw: bool = True, **kw):

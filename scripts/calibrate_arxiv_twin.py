@@ -4,8 +4,8 @@ Probes the full-scale R7 GCN recipe (hidden 256, Adam lr .01, wd 5e-4,
 val early-stop — the config-4 backbone) on candidate difficulty knobs
 until the twin's test accuracy lands near the real dataset's ~0.71
 (OGB leaderboard GCN), the same methodology the planetoid twins got
-(data.planetoid.CALIBRATED).  Run on the TPU (single chip, pallas
-representation).  Appends to artifacts/arxiv_calibration.jsonl.
+(data.planetoid.CALIBRATED).  Run on one GPU (segment representation).
+Appends to artifacts/arxiv_calibration.jsonl.
 
 Usage: python scripts/calibrate_arxiv_twin.py [epochs]
 """
@@ -15,6 +15,10 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+from graph_odenet_tpu.utils.compile_cache import configure_compile_cache  # noqa: E402
+
+configure_compile_cache()
 
 from graph_odenet_tpu.data.ogbn import synthetic_ogbn_arxiv  # noqa: E402
 from graph_odenet_tpu.train import (  # noqa: E402
@@ -57,7 +61,6 @@ def main():
         cfg = NodeClassConfig(
             model="gcn", hidden=256, dropout=0.5, lr=0.01,
             weight_decay=5e-4, epochs=epochs, patience=100,
-            representation="pallas",
         )
         res = fit_node_classifier(cfg, data)
         rec = dict(

@@ -26,13 +26,12 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import jax
+from graph_odenet_tpu.utils.compile_cache import configure_compile_cache  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_num_cpu_devices", 8)
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_test_cache")
+configure_compile_cache()
 
 from graph_odenet_tpu.data import synthetic_planetoid  # noqa: E402
+
 from graph_odenet_tpu.train import (  # noqa: E402
     NodeClassConfig, fit_node_classifier,
 )
@@ -66,11 +65,7 @@ def run(name, h, cvf, nw, seeds=(0, 1), models=("gcn", "gat")):
                 name, seed=seed, homophily=h, class_vocab_frac=cvf,
                 noise_words=nw,
             )
-            cfg = NodeClassConfig(
-                seed=seed,
-                representation="segment" if name == "pubmed" else None,
-                **RECIPES[model],
-            )
+            cfg = NodeClassConfig(seed=seed, **RECIPES[model])
             accs.append(fit_node_classifier(cfg, data)["best"]["test_acc"])
         mean = sum(accs) / len(accs)
         out[model] = mean

@@ -20,13 +20,11 @@ import json
 import os
 import sys
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_num_cpu_devices", 8)
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_test_cache")
-
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from graph_odenet_tpu.utils.compile_cache import configure_compile_cache  # noqa: E402
+
+configure_compile_cache()
 
 from graph_odenet_tpu.data import synthetic_planetoid  # noqa: E402
 from graph_odenet_tpu.train import (  # noqa: E402

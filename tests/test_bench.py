@@ -16,7 +16,7 @@ def test_spmm_bench_smoke():
 def test_gat_bench_smoke():
     r = gat_bench(n_nodes=512, n_edges=4_000, heads=2, feat=8, iters=2)
     assert r["edges_per_s"] > 0
-    assert "pallas_edges_per_s" in r or "pallas_error" in r
+    assert r["ms"] > 0 and r["heads"] == 2
 
 
 def test_ode_bench_smoke():

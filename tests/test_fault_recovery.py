@@ -17,6 +17,9 @@ from graph_odenet_tpu.parallel.sharded_gcn import (
 from graph_odenet_tpu.utils.checkpoint import Checkpointer
 
 
+pytestmark = pytest.mark.usefixtures("no_compile_cache")
+
+
 @pytest.fixture(scope="module")
 def problem():
     nd = min(4, len(jax.devices()))
@@ -59,7 +62,7 @@ def test_resume_is_bit_identical(problem, tmp_path):
     for i in range(3):
         p, loss = step(p, *batch)
         assert float(loss) == losses_ref[i]  # deterministic up to the fault
-    ckpt.save(3, dict(params=jax.device_get(p), step=3), wait=True)
+    ckpt.save(3, dict(params=jax.device_get(p), step=3))
     del p  # the "failure": live state lost
 
     restored = ckpt.restore(dict(params=jax.device_get(params0), step=0))
@@ -72,4 +75,3 @@ def test_resume_is_bit_identical(problem, tmp_path):
     for a, b in zip(jax.tree_util.tree_leaves(ref_final),
                     jax.tree_util.tree_leaves(p)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    ckpt.close()

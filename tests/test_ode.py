@@ -599,13 +599,10 @@ def test_ckpt_adjoint_in_odeblock_model():
         )
 
     m_ck = make("checkpoint")
-    params = m_ck.init(
-        {"params": jax.random.PRNGKey(0)}, adj, data.features,
-        deterministic=True,
-    )["params"]
+    params = m_ck.init(jax.random.PRNGKey(0), adj, data.features)
 
     def loss(m, p):
-        out = m.apply({"params": p}, adj, data.features, deterministic=True)
+        out, _ = m.apply(p, adj, data.features, deterministic=True)
         return -jnp.mean(out[data.idx_train, data.labels[data.idx_train]])
 
     l_ck, g_ck = jax.value_and_grad(lambda p: loss(m_ck, p))(params)

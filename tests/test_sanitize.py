@@ -1,7 +1,5 @@
 """Sanitizer tests (SURVEY.md §5): NaN injection through the solver and
-bounds checks on the Pallas tile metadata."""
-
-import dataclasses
+step-budget exhaustion."""
 
 import jax
 import jax.numpy as jnp
@@ -9,11 +7,7 @@ import numpy as np
 import pytest
 from jax.experimental import checkify
 
-from graph_odenet_tpu.graph import from_edges
-from graph_odenet_tpu.ops.pallas_spmm import prepare
-from graph_odenet_tpu.utils.sanitize import (
-    checkify_tiling, odeint_checked, validate_tiling,
-)
+from graph_odenet_tpu.utils.sanitize import odeint_checked
 
 
 def _nan_after(t0):
@@ -64,33 +58,3 @@ def test_step_budget_exhaustion_reported():
         odeint_checked(
             dyn, y0, ts, method="dopri5", rtol=1e-9, atol=1e-12, max_steps=3
         )
-
-
-@pytest.fixture()
-def tiny_csr():
-    rng = np.random.default_rng(0)
-    s = rng.integers(0, 64, size=256)
-    r = rng.integers(0, 64, size=256)
-    g = from_edges(s, r, n_node=64, normalize="row", node_multiple=128)
-    return prepare(g)
-
-
-def test_validate_tiling_passes_on_prepare(tiny_csr):
-    validate_tiling(tiny_csr)  # prepare() already ran it; idempotent
-    jax.jit(checkify_tiling)(tiny_csr).throw()
-
-
-def test_validate_tiling_catches_corruption(tiny_csr):
-    bad = dataclasses.replace(
-        tiny_csr, blk_ptr=tiny_csr.blk_ptr.at[-1].set(10**9)
-    )
-    with pytest.raises(ValueError, match="blk_ptr"):
-        validate_tiling(bad)
-    with pytest.raises(checkify.JaxRuntimeError, match="blk_ptr"):
-        jax.jit(checkify_tiling)(bad).throw()
-
-    bad_rel = dataclasses.replace(
-        tiny_csr, rel=tiny_csr.rel.at[0, 0].set(999)
-    )
-    with pytest.raises(ValueError, match="rel"):
-        validate_tiling(bad_rel)

@@ -21,6 +21,9 @@ from graph_odenet_tpu.parallel.trainer import (
 )
 
 
+pytestmark = pytest.mark.usefixtures("no_compile_cache")
+
+
 @pytest.fixture(scope="module")
 def tiny_arxiv():
     return synthetic_ogbn_arxiv(seed=0, scale=0.004)  # ~680 nodes
@@ -50,7 +53,7 @@ def test_sharded_gatode_trains(tiny_arxiv):
 
 def test_sharded_trainer_checkpoint_resume(tmp_path, tiny_arxiv):
     """Kill-and-restart contract: a fresh call resumes from the latest
-    orbax step instead of re-training from scratch."""
+    checkpointed step instead of re-training from scratch."""
     ckpt = str(tmp_path / "ckpt")
     cfg = ShardedTrainConfig(
         model="gcnode", hidden=32, steps=2, epochs=4, n_parts=8,

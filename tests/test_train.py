@@ -88,3 +88,30 @@ def test_inode_window_fit():
     # Fitting 5-step windows of a smooth spring system: MSE should be tiny
     # relative to state scale (positions O(1)).
     assert res["window_mse"] < 0.5, res["window_mse"]
+
+
+def test_representation_defaults_to_edge_list(tiny_cora):
+    """Every model aggregates over the edge list unless told otherwise."""
+    from graph_odenet_tpu.train.node_classification import adjacency
+
+    data = tiny_cora
+    for model in ("gcn", "resgcn", "gcnode", "gat", "resgat", "gatode"):
+        rep = NodeClassConfig(model=model).representation
+        assert rep == "segment"
+        assert adjacency(data, rep, model) is data.graph
+
+
+def test_dense_representation_is_gcn_family_only(tiny_cora):
+    """A dense Â serves the GCN family; attention scores edges, so the GAT
+    family refuses it, and an unknown name is refused too."""
+    from graph_odenet_tpu.train.node_classification import adjacency
+
+    data = tiny_cora
+    n = data.graph.n_node_pad
+    for model in ("gcn", "resgcn", "gcnode"):
+        assert adjacency(data, "dense", model).shape == (n, n)
+    for model in ("gat", "resgat", "gatode"):
+        with pytest.raises(ValueError, match="segment"):
+            adjacency(data, "dense", model)
+    with pytest.raises(ValueError, match="unknown representation"):
+        adjacency(data, "auto", "gcn")
